@@ -1,0 +1,522 @@
+"""Chip smoke test of the PyTorch/CUDA port (splatloam_tpu_torch) on one GPU.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
+
+  1. holds each kernel (K1 forward, K2 backward, K3 ranksum reduction,
+     K4 scatter-add reduction) against its plain PyTorch version on the
+     card, at the mapper's full-width shapes (64x1024 image, 4x16 tiles,
+     chunk 256, 768 slots per tile, 100k surfels) and K1/K2 also at the
+     small-pool geometry (8x32 tiles, chunk 256, 1024 slots), and times
+     kernel, plain version and, for the reductions, one torch.index_add_;
+  2. holds ``render`` on the cuda backend against the eager golden
+     renderer (values and gradients) on a reduced scene;
+  3. runs the slice: a synthetic 64x1024 sweep through the device
+     preprocessing, a ~100k-surfel pool, and ``Mapper.update_model`` with
+     the configs/kitti/kitti.yaml settings on two keyframes (ranksum
+     reduction), then one more update with ``scatter="rmw"``; it checks
+     each kernel's launch count and the rendered depth of the result.
+
+It imports nothing of JAX.  It prints one line per kernel check, the
+kernels' JSON line, the card's name and power limit, and last
+{"ok": true, "device": {...}}.  Any failed check exits non-zero.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
+# (non-tensor-core) FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# fp32 operations per (pixel, composited slot) pair, counted from the
+# kernels' arithmetic: the splat geometry (~35) plus compositing (~25) in
+# the forward; the geometry once plus the gradient algebra (~80) and the
+# 16-row sum over pixels in the backward
+FWD_OPS_PER_PAIR = 60
+BWD_OPS_PER_PAIR = 131
+
+H, W = 64, 1024
+N_SURFELS = 100_000
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"FAIL: {msg}")
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs, after a warm-up."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def make_scene(rng, n: int, h: int, w: int, dev):
+    """Seeded street-like scene: surfels on walls at 6-50 m plus a ground
+    plane, facing the sensor (bench.py's scene)."""
+    from splatloam_tpu_torch.geometry import se3, spherical
+    theta = rng.uniform(-np.pi, np.pi, n)
+    z = rng.uniform(-2.0, 4.0, n)
+    r = rng.uniform(6.0, 50.0, n)
+    xyz = np.stack([r * np.cos(theta), r * np.sin(theta), z],
+                   -1).astype(np.float32)
+    k = n // 3
+    xyz[:k] = np.stack([rng.uniform(-40, 40, k), rng.uniform(-40, 40, k),
+                        np.full(k, -1.7)], -1)
+    xyz_t = torch.tensor(xyz, device=dev)
+    normals = -xyz_t / torch.linalg.norm(xyz_t, dim=-1, keepdim=True)
+    quat = se3.quat_from_normal(normals)
+    scales = torch.tensor(rng.uniform(0.05, 0.3, (n, 2)).astype(np.float32),
+                          device=dev)
+    opac = torch.tensor(rng.uniform(0.3, 0.95, n).astype(np.float32),
+                        device=dev)
+    K, _, _ = spherical.spherical_intrinsics(xyz_t, h, w)
+    return xyz_t, scales, quat, opac, torch.eye(4, device=dev), K
+
+
+def report(name, err, tol, ms, plain_ms, library_ms=None):
+    lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
+    print(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol:.3e}) "
+          f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib}", flush=True)
+    if not err <= tol:
+        fail(f"{name} disagrees with its plain version: {err} > {tol}")
+
+
+def check_kernels(dev, rng) -> dict:
+    """Phase 1: each kernel against its plain version at the main path's
+    shapes; returns the per-kernel numbers of the JSON line."""
+    from splatloam_tpu_torch.ops.rasterizer import binning, common, kernels
+    from splatloam_tpu_torch.ops.rasterizer.api import RenderParams
+    from splatloam_tpu_torch.ops.rasterizer.cuda_raster import (
+        RS_GROUP, prepare_tiles)
+
+    results = {}
+    geos = [("main", N_SURFELS, dict(tile_h=4, tile_w=16, chunk=256,
+                                     tile_list_capacity=768)),
+            ("small-pool", N_SURFELS // 5, dict(tile_h=8, tile_w=32, chunk=256,
+                                        tile_list_capacity=1024))]
+    for label, n, geo in geos:
+        scene = make_scene(rng, n, H, W, dev)
+        params = RenderParams(height=H, width=W, backend="cuda",
+                              scatter="ranksum", with_median=False,
+                              with_dist=False, **geo)
+        tiles = prepare_tiles(*scene, params, margin_px=1.5)
+        F = binning.pack_features(common.pack_surfels(*scene)).contiguous()
+        kw = dict(chunk=params.chunk, width=W, with_median=False,
+                  with_dist=False)
+        args = (F, tiles.lists, tiles.counts, tiles.rays_t, tiles.pix_t)
+
+        out, tb = kernels.raster_fwd(*args, **kw)
+        out_p, tb_p = kernels.raster_fwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        # sequential products in the kernel vs log-space prefix sums in the
+        # plain version: fp32 rounding of sums of up to K terms
+        err1 = max(float((out - out_p).abs().max()),
+                   float((tb - tb_p).abs().max()))
+        tol1 = 1e-5 * max(1.0, float(out_p.abs().max()))
+        ms1 = time_ms(lambda: kernels.raster_fwd(*args, **kw))
+        pms1 = time_ms(lambda: kernels.raster_fwd_plain(*args, **kw), 3)
+        report(f"K1_fwd[{label}]", err1, tol1, ms1, pms1)
+
+        g = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32),
+                         device=dev)
+        bkw = dict(chunk=params.chunk, width=W, with_dist=False)
+        bargs = (*args, tb, out, g)
+        dFg = kernels.raster_bwd(*bargs, **bkw)
+        dFg_p = kernels.raster_bwd_plain(*bargs, **bkw)
+        torch.cuda.synchronize()
+        # per-slot sums over the tile's pixels in another order, and T_i as
+        # a running product vs exp of a log-space prefix sum; galpha divides
+        # a suffix sum by max(1 - alpha, 1e-3), which magnifies those
+        # rounding differences up to 1000-fold: the repo's gradient
+        # tolerance, 2e-3 of the largest row entry
+        err2 = float((dFg - dFg_p).abs().max())
+        tol2 = 2e-3 * float(dFg_p.abs().max())
+        # both against the plain version in float64, to show the gap is
+        # rounding and not a fault of either
+        dFg_64 = kernels.raster_bwd_plain(
+            *(a.double() if a.is_floating_point() else a for a in bargs),
+            **bkw)
+        print(f"[kernel] K2_bwd[{label}] vs float64 plain: kernel "
+              f"{float((dFg - dFg_64).abs().max()):.3e}, float32 plain "
+              f"{float((dFg_p - dFg_64).abs().max()):.3e}", flush=True)
+        del dFg_64
+        ms2 = time_ms(lambda: kernels.raster_bwd(*bargs, **bkw))
+        pms2 = time_ms(lambda: kernels.raster_bwd_plain(*bargs, **bkw), 3)
+        report(f"K2_bwd[{label}]", err2, tol2, ms2, pms2)
+        if label != "main":
+            continue
+
+        # work this run's data needs: the slots each tile composited
+        n_live = ((tb > common.T_EPS).any(dim=1)).sum(dim=1)
+        slots = torch.minimum(tiles.counts.long(), n_live * params.chunk)
+        pairs = float(slots.sum()) * tiles.rays_t.shape[1]
+        b1, by1 = bound(nbytes(*args, out, tb), pairs * FWD_OPS_PER_PAIR)
+        b2, by2 = bound(nbytes(*args, tb, out, g, dFg),
+                        pairs * BWD_OPS_PER_PAIR)
+        results["K1_fwd"] = dict(max_abs_err=err1, ms=ms1, plain_ms=pms1,
+                                 bound_ms=b1, bound_by=by1, library_ms=None)
+        results["K2_bwd"] = dict(max_abs_err=err2, ms=ms2, plain_ms=pms2,
+                                 bound_ms=b2, bound_by=by2, library_ms=None)
+
+        plan = tiles.plan
+        rows = dFg.reshape(-1, 16)
+        r_alloc = binning._ranksum_alloc(F.shape[0], RS_GROUP)
+        dFc = kernels.ranksum_rows(rows, plan.pos, plan.ranks, r_alloc)
+        dFc_p = kernels.ranksum_rows_plain(rows, plan.pos, plan.ranks,
+                                           r_alloc)
+        n_rows = F.shape[0]
+        dF4 = kernels.scatter_rows(dFg, tiles.lists, tiles.counts, n_rows)
+        dF4_p = kernels.scatter_rows_plain(dFg, tiles.lists, tiles.counts,
+                                           n_rows)
+        torch.cuda.synchronize()
+        # float sums of the same rows in another order
+        tol34 = 1e-5 * max(1.0, float(dFc_p.abs().max()))
+        err3 = float((dFc - dFc_p).abs().max())
+        err4 = float((dF4 - dF4_p).abs().max())
+        # the two reductions agree with each other (pad ids aside)
+        err34 = float((dFc[plan.rank_of_id.long()][:-1] - dF4[:-1])
+                      .abs().max())
+        if not err34 <= tol34:
+            fail(f"K3 and K4 disagree: {err34} > {tol34}")
+
+        ms3 = time_ms(lambda: kernels.ranksum_rows(rows, plan.pos,
+                                                   plan.ranks, r_alloc))
+        pms3 = time_ms(lambda: kernels.ranksum_rows_plain(
+            rows, plan.pos, plan.ranks, r_alloc))
+        pos_l = plan.pos.long()
+        rank_l = plan.ranks.long().clamp(min=0)
+        lib3 = time_ms(lambda: rows.new_zeros((r_alloc, 16)).index_add_(
+            0, rank_l, rows[pos_l]))
+        report("K3_ranksum[main]", err3, tol34, ms3, pms3, lib3)
+        E = plan.pos.numel()
+        n_distinct = int((plan.ranks.max() + 1))
+        b3, by3 = bound(nbytes(rows, plan.pos, plan.ranks)
+                        + n_distinct * 64, E * 16)
+        results["K3_ranksum"] = dict(max_abs_err=err3, ms=ms3,
+                                     plain_ms=pms3, bound_ms=b3,
+                                     bound_by=by3, library_ms=lib3)
+
+        ms4 = time_ms(lambda: kernels.scatter_rows(dFg, tiles.lists,
+                                                   tiles.counts, n_rows))
+        pms4 = time_ms(lambda: kernels.scatter_rows_plain(
+            dFg, tiles.lists, tiles.counts, n_rows))
+        real = (torch.arange(tiles.lists.shape[1], device=dev)[None, :]
+                < tiles.counts[:, None])
+        ids_real = tiles.lists[real].long()
+        rows_real = dFg[real]
+        lib4 = time_ms(lambda: dFg.new_zeros((n_rows, 16)).index_add_(
+            0, ids_real, rows_real))
+        report("K4_scatter_rows[main]", err4, tol34, ms4, pms4, lib4)
+        n_real = int(real.sum())
+        n_touched = int(torch.unique(ids_real).numel())
+        b4, by4 = bound(n_real * (64 + 4) + nbytes(tiles.counts)
+                        + n_touched * 64, n_real * 16)
+        results["K4_scatter_rows"] = dict(max_abs_err=err4, ms=ms4,
+                                          plain_ms=pms4, bound_ms=b4,
+                                          bound_by=by4, library_ms=lib4)
+        print(f"[kernel] main-path shapes: tiles {tiles.lists.shape[0]} x "
+              f"{tiles.rays_t.shape[1]} px, K {tiles.lists.shape[1]}, "
+              f"composited pairs {pairs:.0f}, ranksum entries {E}, "
+              f"real slots {n_real}", flush=True)
+    return results
+
+
+def check_render_parity(dev, rng) -> None:
+    """Phase 2: render on the cuda backend vs the eager golden renderer,
+    values and gradients, on a reduced scene (the tests' tolerances)."""
+    from splatloam_tpu_torch.ops.rasterizer.api import (RenderParams,
+                                                        rasterize)
+    from splatloam_tpu_torch.ops.rasterizer.eager_ref import rasterize_eager
+
+    h, w = 16, 256
+    scene = make_scene(rng, 300, h, w, dev)
+    xyz = scene[0] * (7.0 / torch.linalg.norm(scene[0], dim=-1,
+                                              keepdim=True))
+    scene = (xyz, scene[1] * 2.0, *scene[2:])
+    params = RenderParams(height=h, width=w, backend="cuda", chunk=128,
+                          tile_h=8, tile_w=32, tile_list_capacity=512,
+                          scatter="ranksum")
+
+    def loss(c):
+        return (c["depth_sum"].sum() * 0.1 + c["alpha"].sum()
+                + 0.5 * c["normal_sum"].sum() + 0.2 * c["dist"].sum())
+
+    leaves = [a.clone().requires_grad_(True) for a in scene[:5]]
+    out = rasterize(*leaves, scene[5], params)
+    g_cuda = torch.autograd.grad(loss(out), leaves)
+    leaves_r = [a.clone().requires_grad_(True) for a in scene[:5]]
+    ref = rasterize_eager(*leaves_r, scene[5], h, w)
+    g_ref = torch.autograd.grad(loss(ref), leaves_r)
+    for key, tol in [("alpha", 2e-5), ("depth_sum", 2e-4),
+                     ("normal_sum", 2e-4), ("dist", 3e-4)]:
+        err = float((out[key] - ref[key]).detach().abs().max())
+        print(f"[parity] {key}: max_abs_err {err:.3e} (tol {tol})")
+        if not err <= tol:
+            fail(f"render {key} disagrees with the eager renderer")
+    for name, a, b, rel in zip(["xyz", "scales", "quat", "opacity", "T_cw"],
+                               g_cuda, g_ref, [2e-3] * 4 + [3e-3]):
+        tol = rel * float(b.abs().max()) + 1e-6
+        err = float((a - b).abs().max())
+        print(f"[parity] grad {name}: max_abs_err {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            fail(f"render gradient {name} disagrees with the eager renderer")
+
+
+def run_slice(dev, rng, overrides=()) -> dict:
+    """Phase 3: Mapper.update_model at 64x1024 on a ~100k-surfel pool."""
+    from splatloam_tpu_torch.config import load_configuration
+    from splatloam_tpu_torch.model import surfels as S
+    from splatloam_tpu_torch.model.camera import make_camera
+    from splatloam_tpu_torch.model.frame import Frame
+    from splatloam_tpu_torch.model.local_model import LocalModel
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.preprocessing import _preprocess_device
+    from splatloam_tpu_torch.profiling import get_profiler
+    from splatloam_tpu_torch.slam.mapper import Mapper
+
+    cfg = load_configuration(Path(__file__).parent / "configs" / "kitti"
+                             / "kitti.yaml",
+                             ["logging.enable=false", *overrides])
+    pc = cfg.preprocessing
+    if (pc.image_height, pc.image_width) != (H, W):
+        fail("configs/kitti/kitti.yaml is no longer 64x1024")
+
+    def world(n):
+        # street canyon: two facades, cross walls, ground, poles
+        a = n // 5
+        x = rng.uniform(-60, 60, 2 * a)
+        fac = np.stack([x, np.where(np.arange(2 * a) < a, -9.0, 11.0),
+                        rng.uniform(-1.7, 8.0, 2 * a)], -1)
+        y = rng.uniform(-9, 11, a)
+        cross = np.stack([np.where(np.arange(a) < a // 2, -55.0, 58.0), y,
+                          rng.uniform(-1.7, 8.0, a)], -1)
+        g = np.stack([rng.uniform(-60, 60, a), rng.uniform(-9, 11, a),
+                      np.full(a, -1.7)], -1)
+        m = n - 4 * a
+        ang = rng.uniform(-np.pi, np.pi, m)
+        cx = rng.choice([-30.0, -10.0, 15.0, 35.0], m)
+        poles = np.stack([cx + 0.3 * np.cos(ang), 7.0 + 0.3 * np.sin(ang),
+                          rng.uniform(-1.7, 5.0, m)], -1)
+        return np.concatenate([fac, cross, g, poles]).astype(np.float32)
+
+    def frame_at(x, idx):
+        pose = np.eye(4)
+        pose[0, 3] = x
+        pts = world(200_000) - np.array([x, 0, 0], np.float32)
+        pts_t = torch.tensor(pts, device=dev)
+        K, depth, nimg, valid = _preprocess_device(
+            pts_t, torch.ones(len(pts), dtype=torch.bool, device=dev),
+            pc.image_height, pc.image_width, pc.depth_min, pc.depth_max)
+        return Frame(make_camera(K, depth, nimg, valid), float(idx),
+                     model_T_frame=pose)
+
+    frames = [frame_at(0.0, 0), frame_at(1.5, 1)]
+    model = LocalModel(cfg, device=dev)
+    seed_pts = torch.tensor(world(N_SURFELS), device=dev)
+    seed_n = -seed_pts / torch.linalg.norm(seed_pts, dim=-1, keepdim=True)
+    model.surfels, model.adam = S.create_from_cloud(
+        seed_pts, seed_n, capacity=1 << int(np.ceil(np.log2(N_SURFELS * 1.3))))
+    mapper = Mapper(cfg, device=dev, seed=SEED)
+    mapper.register_model(model)
+    prof = get_profiler()
+    print(f"[slice] seeded pool: {model.no_gaussians} active surfels, "
+          f"capacity {model.capacity}", flush=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    iters, emas, updates_ms = 0, [], []
+    for i, fr in enumerate(frames):
+        model.insert_keyframe(fr)
+        t1 = time.perf_counter()
+        mapper.update_model(fr, initialize_model=(i == 0))
+        torch.cuda.synchronize()
+        updates_ms.append((time.perf_counter() - t1) * 1e3)
+        iters += mapper.last_iters
+        emas.append(float(mapper.last_ema))
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    opt_ms = prof.stats["map.optimize"].total * 1e3
+    progs = mapper.programs_for(H, W, model.capacity)
+    print(f"[slice] geometry {progs.params.tile_h}x{progs.params.tile_w} "
+          f"chunk {progs.params.chunk} K {progs.params.tile_list_capacity} "
+          f"scatter {progs.params.scatter}")
+    print(f"[slice] iterations {iters}, optimize {opt_ms / iters:.3f} "
+          f"ms/iteration, keyframe updates {[round(u, 1) for u in updates_ms]}"
+          f" ms, total {wall:.2f} s, loss EMA {emas}, active surfels "
+          f"{model.no_gaussians}, launches {launches}", flush=True)
+    for k in ("K1_fwd", "K2_bwd", "K3_ranksum"):
+        if launches[k] == 0:
+            fail(f"{k} was not launched on the main path")
+    if not all(np.isfinite(emas)):
+        fail(f"loss EMA not finite: {emas}")
+    for name, p in zip(S.SurfelParams._fields, model.surfels.params):
+        if not bool(torch.isfinite(p[model.surfels.active]).all()):
+            fail(f"non-finite {name} after the updates")
+
+    # the optimized map reproduces the second keyframe's range image
+    pkg = mapper.render_frame(frames[1])
+    cam = frames[1].camera
+    valid = cam.valid
+    l1 = (pkg["surf_depth"] - cam.depth).abs()[valid]
+    cover = float((pkg["rend_alpha"][valid] > 0.5).float().mean())
+    med_l1 = float(l1.median())
+    print(f"[slice] keyframe 1 re-render: coverage(alpha>0.5) {cover:.4f}, "
+          f"median depth L1 {med_l1:.4f} m")
+    if not (cover > 0.9 and med_l1 < 0.25):
+        fail("the optimized map does not reproduce the keyframe")
+
+    # the same update with the scatter-add reduction (the rebin-1 choice)
+    cfg_rmw = copy.deepcopy(cfg)
+    cfg_rmw.compute.scatter = "rmw"
+    cfg_rmw.mapping.num_iterations = 31
+    mapper_rmw = Mapper(cfg_rmw, device=dev, seed=SEED)
+    mapper_rmw.register_model(model)
+    kernels.reset_launch_counts()
+    mapper_rmw.update_model(frames[1])
+    torch.cuda.synchronize()
+    launches_rmw = {k: v.launches for k, v in kernels.KERNELS.items()}
+    print(f"[slice] rmw update: {mapper_rmw.last_iters} iterations, loss EMA "
+          f"{float(mapper_rmw.last_ema):.5f}, launches {launches_rmw}")
+    if launches_rmw["K4_scatter_rows"] == 0:
+        fail("K4_scatter_rows was not launched on the rmw path")
+    if not np.isfinite(float(mapper_rmw.last_ema)):
+        fail("rmw loss EMA not finite")
+    launches["K4_scatter_rows"] = launches_rmw["K4_scatter_rows"]
+    profile_optimize(cfg, mapper, model)
+    return launches
+
+
+def profile_optimize(cfg, mapper, model) -> None:
+    """Where an optimize iteration's time goes at the slice's shapes: the
+    rebin (binning + ranksum plan) and one Adam iteration on the host
+    clock, then the device time by operation and the device's idle share
+    over two rebin blocks under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from splatloam_tpu_torch.slam.mapper import MapperPrograms
+
+    cfg = copy.deepcopy(cfg)
+    cfg.mapping.num_iterations = 31            # two blocks of 16
+    progs = MapperPrograms(cfg, H, W, model.capacity)
+    kf = mapper._stack_keyframes(model.kf_stack["K"].shape[0])
+    idx = torch.ones((progs.n_blocks(),), dtype=torch.long,
+                     device=model.device)
+    surf, adam = model.surfels, model.adam
+    sc = torch.exp(surf.params.log_scale)
+    op = torch.sigmoid(surf.params.logit_opacity) * surf.active
+
+    def rebin():
+        from splatloam_tpu_torch.ops.rasterizer.api import prepare_tiles
+        return prepare_tiles(surf.params.xyz, sc, surf.params.quat, op,
+                             kf.T_cw[1], kf.K[1], progs.params,
+                             margin_px=cfg.compute.bin_margin_px)
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps, out
+
+    rebin_ms, tiles = host_ms(rebin, 3)
+    iter_ms, _ = host_ms(lambda: progs.one_iter(surf, adam, kf, idx[0],
+                                                tiles), 16)
+    print(f"[profile] rebin {rebin_ms:.3f} ms, one Adam iteration "
+          f"{iter_ms:.3f} ms (host clock, frozen tiles)", flush=True)
+    plain_ms, _ = host_ms(lambda: progs.optimize(surf, adam, kf, idx), 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        progs.optimize(surf, adam, kf, idx)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): the operators that
+    # launched them carry the same device time again
+    rows = [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    print(f"[profile] 32 iterations: wall {plain_ms:.3f} ms unprofiled, "
+          f"{wall_ms:.3f} ms profiled, "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1.0 - busy_ms / wall_ms:.4f}, {len(rows)} device op kinds")
+    for e in rows[:15]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d} x  {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+
+    dev = torch.device("cuda")
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
+          flush=True)
+    t0 = time.perf_counter()
+    secs = kernels.build_all()
+    print(f"[build] {len(secs)} sources in {time.perf_counter() - t0:.1f} s "
+          f"{ {k: round(v, 1) for k, v in secs.items()} }", flush=True)
+    rng = np.random.default_rng(SEED)
+    results = check_kernels(dev, rng)
+    check_render_parity(dev, rng)
+    launches = run_slice(dev, rng)
+
+    line = []
+    for name, k in kernels.KERNELS.items():
+        line.append(dict(name=name, route="cuda",
+                         source=f"splatloam_tpu_torch/csrc/{k.source}",
+                         replaces=k.replaces, launches=launches[name],
+                         **results[name]))
+    print(json.dumps({"kernels": line}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,45 @@
+// K4: scatter-add of per-slot gradient rows by surfel id.
+//
+// Replaces splatloam_tpu/ops/rasterizer/pallas_raster.py:
+// _scatter_rows_kernel (the TPU-only multi-tile variant
+// _scatter_rows_kernel_batched has no counterpart).
+//
+// dF[lists[t, j]] += dFg[t, j] for j < counts[t]; padding slots are
+// skipped.
+//
+// Bound on the H100: bytes.  It reads each real slot's 64-byte row and
+// 4-byte id and writes each touched surfel's 64-byte row.
+//
+// Design: one thread per (slot, column), so a warp reads two whole rows
+// with coalesced loads and its atomic adds land on two contiguous 64-byte
+// rows.  The TPU kernel's serial read-modify-write over a VMEM-resident
+// pool becomes hardware float atomics in L2; the sum order, and so the
+// last bits, vary from run to run.
+#include <cuda_runtime.h>
+
+__global__ void scatter_rows_kernel(const float* __restrict__ dFg,
+                                    const int* __restrict__ lists,
+                                    const int* __restrict__ counts,
+                                    float* __restrict__ dF, int K,
+                                    long long n_elems) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_elems) return;
+  const long long slot = idx >> 4;
+  const int k = (int)(idx & 15);
+  const int t = (int)(slot / K);
+  const int j = (int)(slot % K);
+  if (j >= counts[t]) return;
+  atomicAdd(dF + (size_t)lists[slot] * 16 + k, dFg[idx]);
+}
+
+extern "C" int launch_scatter_rows(const float* dFg, const int* lists,
+                                   const int* counts, float* dF,
+                                   int n_tiles, int K, cudaStream_t stream) {
+  const long long n_elems = (long long)n_tiles * K * 16;
+  if (n_elems == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (n_elems + threads - 1) / threads;
+  scatter_rows_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      dFg, lists, counts, dF, K, n_elems);
+  return (int)cudaGetLastError();
+}

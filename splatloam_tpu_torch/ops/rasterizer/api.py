@@ -1,0 +1,145 @@
+"""Public rendering API: rasterize + channel decoding.
+
+Counterpart of splatloam_tpu/ops/rasterizer/api.py.  ``render`` produces
+rend_alpha / rend_normal (world frame, alpha-normalized) / rend_dist /
+surf_depth / surf_normal (from depth finite differences) plus
+radii/visibility from the raw rasterizer channels.
+
+Backends: "cuda" = the tiled kernel path (on CPU tensors its kernels run
+their plain PyTorch versions), "eager" = the golden O(N*P) renderer,
+"auto" = "cuda".  The tensors' device decides where the work runs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ...geometry import se3, spherical
+from .eager_ref import rasterize_eager
+
+
+class RenderParams(NamedTuple):
+    """Static rasterizer knobs."""
+    height: int
+    width: int
+    backend: str = "auto"
+    chunk: int = 256
+    tile_h: int = 8
+    tile_w: int = 32
+    tile_list_capacity: int = 3072
+    # the median/distortion channels cost extra work in the kernels; the
+    # mapping losses use neither, so callers may disable them
+    with_median: bool = True
+    with_dist: bool = True
+    # binner: "sorted" (capped windows, fast) or "exact" (unbounded
+    # coverage; used by parity tests)
+    binner: str = "sorted"
+    cap_ty: int = 9
+    cap_tx: int = 9
+    # gradient reduction: "ranksum" (rebin-time id-sort + segmented-sum
+    # kernel) or "rmw" (atomic scatter-add kernel)
+    scatter: str = "rmw"
+
+
+def adaptive_geometry(n_surfels: int) -> dict:
+    """Kernel geometry by pool size: small pools take bigger tiles (fewer
+    mostly-empty tiles), 100k-scale pools 4x16 tiles.  The thresholds are
+    the JAX package's, kept so both packages bin alike; they have not been
+    re-swept for the H100."""
+    if n_surfels <= 48_000:
+        return dict(tile_h=8, tile_w=32, chunk=256, tile_list_capacity=1024)
+    return dict(tile_h=4, tile_w=16, chunk=256, tile_list_capacity=768)
+
+
+def fit_geometry(geo: dict, height: int, width: int) -> dict:
+    """Shrink tile dims to divisors of the image (kernel precondition)."""
+    geo = dict(geo)
+    while height % geo["tile_h"]:
+        geo["tile_h"] //= 2
+    while width % geo["tile_w"]:
+        geo["tile_w"] //= 2
+    return geo
+
+
+def _resolve_backend(backend: str) -> str:
+    if backend == "auto":
+        return "cuda"
+    if backend not in ("cuda", "eager"):
+        raise ValueError(f"unknown rasterizer backend {backend!r}")
+    return backend
+
+
+def rasterize(xyz, scaling, rotation, opacity, T_cw, K,
+              params: RenderParams, tiles=None) -> dict:
+    """Dispatch to a rasterizer backend; returns the raw channel dict.
+
+    ``tiles``: optional frozen TileAssignment (cuda backend only) to
+    amortize binning across iterations; the eager path ignores it.
+    """
+    if _resolve_backend(params.backend) == "eager":
+        return rasterize_eager(xyz, scaling, rotation, opacity, T_cw, K,
+                               params.height, params.width, params.chunk)
+    from .cuda_raster import rasterize_cuda
+    return rasterize_cuda(xyz, scaling, rotation, opacity, T_cw, K, params,
+                          tiles=tiles)
+
+
+def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K,
+                  params: RenderParams, margin_px: float = 0.0):
+    """Precompute a frozen TileAssignment (None on the eager backend)."""
+    if _resolve_backend(params.backend) != "cuda":
+        return None
+    from .cuda_raster import prepare_tiles as _prep
+    return _prep(xyz, scaling, rotation, opacity, T_cw, K, params,
+                 margin_px=margin_px)
+
+
+def render(xyz, scaling, rotation, opacity, T_cw, K,
+           params: RenderParams, depth_ratio: float = 0.0,
+           tiles=None) -> dict:
+    """Full render + decode.
+
+    Args are *activated* surfel parameters (scaling positive, opacity in
+    (0,1), rotation approx. unit quaternion) in the model frame, plus the
+    model->camera transform T_cw and spherical intrinsics K, all on one
+    device.
+
+    Returns a dict: rend_alpha [H, W], rend_normal [H, W, 3] (world frame,
+    alpha-normalized), rend_dist [H, W], surf_depth [H, W], surf_normal
+    [H, W, 3] (x alpha), rend_median [H, W], radii [N],
+    visibility_filter [N] bool.
+    """
+    chans = rasterize(xyz, scaling, rotation, opacity, T_cw, K, params,
+                      tiles=tiles)
+    return _decode(chans, T_cw, K, depth_ratio)
+
+
+def _decode(chans, T_cw, K, depth_ratio) -> dict:
+    """Raw channels -> render package."""
+    alpha = chans["alpha"]
+    mask = alpha > 0.0
+    safe_alpha = torch.where(mask, alpha, 1.0)
+
+    R_wc = T_cw[:3, :3].T
+    normal_cam = chans["normal_sum"] / safe_alpha[..., None]
+    rend_normal = torch.where(mask[..., None], normal_cam @ R_wc.T, 0.0)
+
+    depth_expected = torch.where(mask, chans["depth_sum"] / safe_alpha, 0.0)
+    surf_depth = depth_expected * (1.0 - depth_ratio) + \
+        chans["median"] * depth_ratio
+
+    T_wc = se3.invert_T(T_cw)
+    surf_normal = spherical.depth_to_normal(surf_depth, K, T_wc)
+    surf_normal = surf_normal * alpha[..., None]
+
+    return {
+        "rend_alpha": alpha,
+        "rend_normal": rend_normal,
+        "rend_dist": chans["dist"],
+        "rend_median": chans["median"],
+        "surf_depth": surf_depth,
+        "surf_normal": surf_normal,
+        "radii": chans["radii"],
+        "visibility_filter": chans["radii"] > 0,
+    }

@@ -1,0 +1,499 @@
+"""The rasterizer's four hand-written CUDA kernels, their wrappers and their
+plain PyTorch versions.
+
+  K1 raster_fwd    <- splatloam_tpu/ops/rasterizer/pallas_raster.py:_fwd_kernel
+  K2 raster_bwd    <- pallas_raster.py:_bwd_kernel (fused=False)
+  K3 ranksum_rows  <- pallas_raster.py:_ranksum_kernel
+  K4 scatter_rows  <- pallas_raster.py:_scatter_rows_kernel
+
+Each wrapper takes the plain version only for tensors that lie on the CPU;
+for CUDA tensors it launches its kernel (built at first use from
+``splatloam_tpu_torch/csrc/*.cu`` with nvcc into ``build/splatloam_tpu_torch``
+and loaded with ctypes) or raises.  ``KERNELS[name].launches`` counts the
+kernel's launches, and nothing else.
+
+Shapes (one view): F [N+1, 16] packed features (row N is the zero pad
+row), lists [T, K] int32 slot ids, counts [T] int32, rays [T, P, 3],
+pix [T, P, 2], out [T, P, 8] = (depth_sum, alpha, normal_sum[3], median,
+dist, final_T), tbound [T, P, K/chunk] chunk-start transmittance (0 for
+chunks the forward skipped), g [T, P, 8] output cotangents, dFg [T, K, 16]
+per-slot feature gradients.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+from .common import (ALPHA_MAX, ALPHA_MIN, FILTER_INV_SQUARE, NEAR,
+                     T_EPS)
+
+_PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "splatloam_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+# the backward kernel's block is one thread per tile pixel, and its
+# sub-chunk of slots is one warp-reduction row set
+MAX_TILE_PIXELS = 256
+SUB = 32
+MAX_CHUNK = 1024
+
+
+@dataclass
+class Kernel:
+    """One CUDA kernel: its source, C entry point and launch count."""
+    name: str
+    source: str        # file under csrc/
+    symbol: str        # extern "C" launcher
+    argtypes: tuple
+    replaces: str      # TPU kernel it ports (file:line)
+    launches: int = 0
+    _fn: object = None
+
+    def fn(self):
+        if self._fn is None:
+            build_all()
+        return self._fn
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TPU = "splatloam_tpu/ops/rasterizer/pallas_raster.py"
+KERNELS = {
+    "K1_fwd": Kernel(
+        "K1_fwd", "raster_fwd.cu", "launch_raster_fwd",
+        (_P,) * 7 + (_I,) * 4 + (_F, _F) + (_I, _I, _P),
+        f"{_TPU}:159"),
+    "K2_bwd": Kernel(
+        "K2_bwd", "raster_bwd.cu", "launch_raster_bwd",
+        (_P,) * 9 + (_I,) * 4 + (_F, _F) + (_I, _P),
+        f"{_TPU}:267"),
+    "K3_ranksum": Kernel(
+        "K3_ranksum", "ranksum.cu", "launch_ranksum_rows",
+        (_P,) * 4 + (_I, _P), f"{_TPU}:728"),
+    "K4_scatter_rows": Kernel(
+        "K4_scatter_rows", "scatter_rows.cu", "launch_scatter_rows",
+        (_P,) * 4 + (_I, _I, _P), f"{_TPU}:478"),
+}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").is_file():
+            return str(Path(root, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                           "from csrc/ at first use on a GPU machine")
+    return found
+
+
+def _library_path(source: str) -> Path:
+    """Build output keyed by the sources and flags, so an edit rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / source]:
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, float]:
+    """Compile every kernel source that is not built yet, one nvcc per
+    source, all started together; load each library.  Returns the build
+    seconds of each compiled source."""
+    import time
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    t0 = time.perf_counter()
+    for k in KERNELS.values():
+        out = _library_path(k.source)
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o",
+                   str(tmp), str(CSRC_DIR / k.source)]
+            jobs[k.source] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+    seconds = {}
+    errors = []
+    for source, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        seconds[source] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {source}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for k in KERNELS.values():
+        if k._fn is None:
+            lib = ctypes.CDLL(str(_library_path(k.source)))
+            fn = getattr(lib, k.symbol)
+            fn.argtypes = list(k.argtypes)
+            fn.restype = ctypes.c_int
+            k._fn = fn
+    return seconds
+
+
+def _launch(name: str, *args) -> None:
+    k = KERNELS[name]
+    err = k.fn()(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    k.launches += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {t.device}: the kernels run on "
+                     "CUDA, their plain versions on the CPU")
+
+
+def _check_tiles(F, lists, counts, rays, pix, chunk):
+    n_tiles, k_cap = lists.shape
+    p_tile = rays.shape[1]
+    dev = F.device
+    _check("F", F, torch.float32, (F.shape[0], 16), dev)
+    _check("lists", lists, torch.int32, (n_tiles, k_cap), dev)
+    _check("counts", counts, torch.int32, (n_tiles,), dev)
+    _check("rays", rays, torch.float32, (n_tiles, p_tile, 3), dev)
+    _check("pix", pix, torch.float32, (n_tiles, p_tile, 2), dev)
+    if p_tile % 32 or p_tile > MAX_TILE_PIXELS:
+        raise ValueError(f"tile of {p_tile} pixels: the kernels take a "
+                         f"multiple of 32 up to {MAX_TILE_PIXELS}")
+    if chunk % SUB or chunk > MAX_CHUNK or k_cap % chunk:
+        raise ValueError(f"chunk {chunk} must be a multiple of {SUB} up "
+                         f"to {MAX_CHUNK} dividing the list capacity {k_cap}")
+    return n_tiles, k_cap, p_tile
+
+
+# ---------------------------------------------------------------------------
+# shared per-(pixel, slot) geometry of the plain versions
+# ---------------------------------------------------------------------------
+
+def _splat_geometry(Fc, rays, pix, width: int) -> dict:
+    """Fc [T, C, 16] chunk features; rays [T, P, 3]; pix [T, P, 2] ->
+    dict of [T, P, C] (and [T, 1, C]) arrays, as the TPU kernel's
+    ``_splat_geometry``."""
+    f = Fc.transpose(1, 2)[:, :, None, :]             # [T, 16, 1, C]
+    p3, gu3, gv3, n3 = f[:, 0:3], f[:, 3:6], f[:, 6:9], f[:, 9:12]
+    opa, depth_c, cx, cy = f[:, 12], f[:, 13], f[:, 14], f[:, 15]
+    r = rays.transpose(1, 2)[..., None]                # [T, 3, P, 1]
+
+    def dotr(a):
+        return r[:, 0] * a[:, 0] + r[:, 1] * a[:, 1] + r[:, 2] * a[:, 2]
+
+    A1, A2, A3 = dotr(gu3), dotr(gv3), dotr(n3)
+    np_ = torch.sum(n3 * p3, dim=1)                    # [T, 1, C]
+    pgu = torch.sum(p3 * gu3, dim=1)
+    pgv = torch.sum(p3 * gv3, dim=1)
+
+    denom = torch.where(torch.abs(A3) < 1e-8, 1e-8, A3)
+    tstar = np_ / denom
+    uu = tstar * A1 - pgu
+    vv = tstar * A2 - pgv
+    rho3 = uu * uu + vv * vv
+
+    dx = pix[:, :, 0:1] - cx
+    dx = dx - torch.round(dx * (1.0 / width)) * width
+    dy = pix[:, :, 1:2] - cy
+    rho2 = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+
+    use2 = rho2 < rho3
+    rho = torch.where(use2, rho2, rho3)
+    m = torch.where(use2, depth_c, tstar)
+    g_exp = torch.exp(-0.5 * rho)
+    alpha_raw = opa * g_exp
+    ok = (tstar > NEAR) & (alpha_raw >= ALPHA_MIN)
+    alpha = torch.where(ok, torch.clamp(alpha_raw, max=ALPHA_MAX), 0.0)
+    return dict(p3=p3[..., 0, :], gu3=gu3[..., 0, :], gv3=gv3[..., 0, :],
+                n3=n3[..., 0, :], A1=A1, A2=A2, A3=denom, tstar=tstar,
+                uu=uu, vv=vv, use2=use2, m=m, g_exp=g_exp,
+                alpha_raw=alpha_raw, alpha=alpha, ok=ok, dx=dx, dy=dy)
+
+
+def _excl_cumsum(x):
+    return torch.cumsum(x, dim=-1) - x
+
+
+def _strict_suffix_sum(x):
+    return torch.flip(torch.cumsum(torch.flip(x, (-1,)), dim=-1), (-1,)) - x
+
+
+def _n_active_chunks(counts, chunk):
+    return (counts.long() + chunk - 1) // chunk
+
+
+# ---------------------------------------------------------------------------
+# K1: forward
+# ---------------------------------------------------------------------------
+
+def raster_fwd_plain(F, lists, counts, rays, pix, *, chunk: int,
+                     width: int, with_median: bool, with_dist: bool):
+    """Plain version of K1: a tile-batched loop over chunks, each chunk
+    composited in closed form (exclusive cumsum of log1p(-alpha)); a tile
+    stops at its count or once every pixel's T <= T_EPS."""
+    n_tiles, k_cap = lists.shape
+    p_tile = rays.shape[1]
+    n_chunks = k_cap // chunk
+    n_act = _n_active_chunks(counts, chunk)
+    zeros = rays.new_zeros((n_tiles, p_tile))
+    T_carry = torch.ones_like(zeros)
+    d_sum, a_sum, med, dist = (zeros.clone() for _ in range(4))
+    n_sum = rays.new_zeros((n_tiles, p_tile, 3))
+    tbound = rays.new_zeros((n_tiles, p_tile, n_chunks))
+    for i in range(n_chunks):
+        act = (i < n_act) & (T_carry.amax(dim=1) > T_EPS)      # [T]
+        if not bool(act.any()):
+            break
+        a1 = act[:, None]
+        tbound[:, :, i] = torch.where(a1, T_carry, 0.0)
+        Fc = F[lists[:, i * chunk:(i + 1) * chunk].long()]      # [T, C, 16]
+        geo = _splat_geometry(Fc, rays, pix, width)
+        alpha, m = geo["alpha"], geo["m"]
+        logs = torch.log1p(-alpha)
+        Ti = T_carry[..., None] * torch.exp(_excl_cumsum(logs))
+        w = alpha * Ti
+        wm = w * m
+        if with_dist:
+            a_prev = a_sum[..., None] + _excl_cumsum(w)
+            d_prev = d_sum[..., None] + _excl_cumsum(wm)
+            dist = torch.where(a1, dist + torch.sum(
+                w * (m * a_prev - d_prev), dim=-1), dist)
+        if with_median:
+            crossing = (Ti > 0.5) & (Ti * (1.0 - alpha) <= 0.5) & (alpha > 0)
+            first = crossing & (torch.cumsum(crossing.int(), dim=-1) == 1)
+            d_first = torch.sum(torch.where(first, m, 0.0), dim=-1)
+            any_c = first.any(dim=-1)
+            med = torch.where(a1 & (med == 0.0) & any_c, d_first, med)
+        d_sum = torch.where(a1, d_sum + wm.sum(-1), d_sum)
+        a_sum = torch.where(a1, a_sum + w.sum(-1), a_sum)
+        n_sum = torch.where(a1[..., None], n_sum + torch.einsum(
+            "tpc,tkc->tpk", w, geo["n3"]), n_sum)
+        T_carry = torch.where(a1, T_carry * torch.exp(logs.sum(-1)),
+                              T_carry)
+    out = torch.cat([d_sum[..., None], a_sum[..., None], n_sum,
+                     med[..., None], dist[..., None], T_carry[..., None]],
+                    dim=-1)
+    return out, tbound
+
+
+def raster_fwd(F, lists, counts, rays, pix, *, chunk: int, width: int,
+               with_median: bool, with_dist: bool):
+    """K1: (out [T, P, 8], tbound [T, P, K/chunk])."""
+    if not _on_cuda(F):
+        return raster_fwd_plain(F, lists, counts, rays, pix, chunk=chunk,
+                                width=width, with_median=with_median,
+                                with_dist=with_dist)
+    n_tiles, k_cap, p_tile = _check_tiles(F, lists, counts, rays, pix,
+                                          chunk)
+    out = torch.empty((n_tiles, p_tile, 8), dtype=torch.float32,
+                      device=F.device)
+    tbound = torch.empty((n_tiles, p_tile, k_cap // chunk),
+                         dtype=torch.float32, device=F.device)
+    _launch("K1_fwd", F.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+            rays.data_ptr(), pix.data_ptr(), out.data_ptr(),
+            tbound.data_ptr(), n_tiles, k_cap, chunk, p_tile,
+            float(width), 1.0 / width, int(with_median), int(with_dist),
+            _stream(F))
+    return out, tbound
+
+
+# ---------------------------------------------------------------------------
+# K2: backward
+# ---------------------------------------------------------------------------
+
+def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
+                     chunk: int, width: int, with_dist: bool):
+    """Plain version of K2: reverse loop over each tile's live chunks
+    (those the forward ran: chunk-start T > T_EPS for some pixel), with
+    O(P) suffix carries; closed-form in-chunk prefix/suffix sums."""
+    n_tiles, k_cap = lists.shape
+    n_chunks = k_cap // chunk
+    n_act = _n_active_chunks(counts, chunk)
+    col = torch.arange(n_chunks, device=F.device)
+    live = (col[None, :] < n_act[:, None]) & (tbound.amax(dim=1) > T_EPS)
+    n_live = live.sum(dim=1)                                   # [T]
+    gD, gA, gN, gdist = g[..., 0:1], g[..., 1:2], g[..., 2:5], g[..., 6:7]
+    A_total, D_total = outs[..., 1:2], outs[..., 0:1]
+    S_phi_c = torch.zeros_like(gD)
+    W_c = torch.zeros_like(gD)
+    MD_c = torch.zeros_like(gD)
+    dFg = F.new_zeros((n_tiles, k_cap, 16))
+    for i in range(n_chunks - 1, -1, -1):
+        a1 = (i < n_live)[:, None, None]                       # [T, 1, 1]
+        if not bool(a1.any()):
+            continue
+        T_start = tbound[:, :, i:i + 1]
+        Fc = F[lists[:, i * chunk:(i + 1) * chunk].long()]
+        geo = _splat_geometry(Fc, rays, pix, width)
+        alpha, m = geo["alpha"], geo["m"]
+        Ti = T_start * torch.exp(_excl_cumsum(torch.log1p(-alpha)))
+        w = alpha * Ti
+        wm = w * m
+        n3 = geo["n3"]                                         # [T, 3, C]
+        nphi = torch.einsum("tpk,tkc->tpc", gN, n3)
+        phi = gD * m + gA + nphi
+        if with_dist:
+            W_suf = _strict_suffix_sum(w) + W_c
+            MD_suf = _strict_suffix_sum(wm) + MD_c
+            A_prev = A_total - w - W_suf
+            D_prev = D_total - wm - MD_suf
+            phi = phi + gdist * (m * A_prev - D_prev + MD_suf - m * W_suf)
+        S_phi = _strict_suffix_sum(w * phi) + S_phi_c
+        one_m_a = torch.clamp(1.0 - alpha, min=1e-3)
+        galpha = torch.where(alpha > 0, Ti * phi - S_phi / one_m_a, 0.0)
+        gm = w * gD
+        if with_dist:
+            gm = gm + w * gdist * (A_prev - W_suf)
+        live_px = geo["ok"] & (geo["alpha_raw"] < ALPHA_MAX)
+        g_opa = torch.where(live_px, galpha * geo["g_exp"], 0.0)
+        g_rho = torch.where(live_px, galpha * (-0.5) * geo["alpha_raw"], 0.0)
+        use2 = geo["use2"]
+        u3 = ~use2
+        g_u = torch.where(u3, g_rho * 2.0 * geo["uu"], 0.0)
+        g_v = torch.where(u3, g_rho * 2.0 * geo["vv"], 0.0)
+        g_t = g_u * geo["A1"] + g_v * geo["A2"] + torch.where(u3, gm, 0.0)
+        g_np = g_t / geo["A3"]
+        g_A3 = -g_t * geo["tstar"] / geo["A3"]
+        g_A1 = g_u * geo["tstar"]
+        g_A2 = g_v * geo["tstar"]
+        g_dx = torch.where(use2, g_rho * 2.0 * FILTER_INV_SQUARE * geo["dx"],
+                           0.0)
+        g_dy = torch.where(use2, g_rho * 2.0 * FILTER_INV_SQUARE * geo["dy"],
+                           0.0)
+
+        def sum_px(x):                                 # [T, P, C] -> [T, 1, C]
+            return x.sum(dim=1, keepdim=True)
+
+        def dot_rays(x):                               # -> [T, 3, C]
+            return torch.einsum("tpk,tpc->tkc", rays, x)
+
+        s_g_np, s_g_u, s_g_v = sum_px(g_np), sum_px(g_u), sum_px(g_v)
+        d_gu = dot_rays(g_A1) - s_g_u * geo["p3"]
+        d_gv = dot_rays(g_A2) - s_g_v * geo["p3"]
+        d_n = (dot_rays(g_A3) + s_g_np * geo["p3"]
+               + torch.einsum("tpk,tpc->tkc", gN, w))
+        d_p = s_g_np * n3 - s_g_u * geo["gu3"] - s_g_v * geo["gv3"]
+        dF = torch.cat([d_p, d_gu, d_gv, d_n, sum_px(g_opa),
+                        sum_px(torch.where(use2, gm, 0.0)),
+                        sum_px(-g_dx), sum_px(-g_dy)], dim=1)  # [T, 16, C]
+        dFg[:, i * chunk:(i + 1) * chunk] = torch.where(
+            a1, dF.transpose(1, 2), 0.0)
+        S_phi_c = torch.where(a1, S_phi_c + torch.sum(w * phi, -1, True),
+                              S_phi_c)
+        W_c = torch.where(a1, W_c + torch.sum(w, -1, True), W_c)
+        MD_c = torch.where(a1, MD_c + torch.sum(wm, -1, True), MD_c)
+    return dFg
+
+
+def raster_bwd(F, lists, counts, rays, pix, tbound, outs, g, *,
+               chunk: int, width: int, with_dist: bool):
+    """K2: dFg [T, K, 16] per-slot feature gradients (the median channel
+    is not differentiated)."""
+    if not _on_cuda(F):
+        return raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs,
+                                g, chunk=chunk, width=width,
+                                with_dist=with_dist)
+    n_tiles, k_cap, p_tile = _check_tiles(F, lists, counts, rays, pix,
+                                          chunk)
+    dev = F.device
+    _check("tbound", tbound, torch.float32,
+           (n_tiles, p_tile, k_cap // chunk), dev)
+    _check("outs", outs, torch.float32, (n_tiles, p_tile, 8), dev)
+    _check("g", g, torch.float32, (n_tiles, p_tile, 8), dev)
+    dFg = torch.empty((n_tiles, k_cap, 16), dtype=torch.float32, device=dev)
+    _launch("K2_bwd", F.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+            rays.data_ptr(), pix.data_ptr(), tbound.data_ptr(),
+            outs.data_ptr(), g.data_ptr(), dFg.data_ptr(), n_tiles, k_cap,
+            chunk, p_tile, float(width), 1.0 / width, int(with_dist),
+            _stream(F))
+    return dFg
+
+
+# ---------------------------------------------------------------------------
+# K3: segmented sum of id-sorted rows into rank rows
+# ---------------------------------------------------------------------------
+
+def ranksum_rows_plain(rows, pos, ranks, n_rows: int):
+    """Plain version of K3: dFc[ranks[e]] += rows[pos[e]] for ranks >= 0."""
+    real = ranks >= 0
+    dFc = rows.new_zeros((n_rows, 16))
+    return dFc.index_add_(0, ranks[real].long(), rows[pos[real].long()])
+
+
+def ranksum_rows(rows, pos, ranks, n_rows: int):
+    """K3: rows [R, 16] (any slot layout), pos [E] int32 slot of each
+    id-sorted entry, ranks [E] int32 dense ranks, non-decreasing up to a
+    tail of -1 pads -> dFc [n_rows, 16], row r = sum of the rows whose id
+    has rank r."""
+    if not _on_cuda(rows):
+        return ranksum_rows_plain(rows, pos, ranks, n_rows)
+    dev = rows.device
+    n_entries = pos.shape[0]
+    _check("rows", rows, torch.float32, (rows.shape[0], 16), dev)
+    _check("pos", pos, torch.int32, (n_entries,), dev)
+    _check("ranks", ranks, torch.int32, (n_entries,), dev)
+    dFc = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
+    _launch("K3_ranksum", rows.data_ptr(), pos.data_ptr(), ranks.data_ptr(),
+            dFc.data_ptr(), n_entries, _stream(rows))
+    return dFc
+
+
+# ---------------------------------------------------------------------------
+# K4: scatter-add of the real slots' rows by surfel id
+# ---------------------------------------------------------------------------
+
+def scatter_rows_plain(dFg, lists, counts, n_rows: int):
+    """Plain version of K4: dF[lists[t, j]] += dFg[t, j] for j < counts[t]."""
+    k_cap = lists.shape[1]
+    real = torch.arange(k_cap, device=dFg.device)[None, :] < counts[:, None]
+    dF = dFg.new_zeros((n_rows, 16))
+    return dF.index_add_(0, lists[real].long(), dFg[real])
+
+
+def scatter_rows(dFg, lists, counts, n_rows: int):
+    """K4: dFg [T, K, 16] -> dF [n_rows, 16] by surfel id."""
+    if not _on_cuda(dFg):
+        return scatter_rows_plain(dFg, lists, counts, n_rows)
+    dev = dFg.device
+    n_tiles, k_cap = lists.shape
+    _check("dFg", dFg, torch.float32, (n_tiles, k_cap, 16), dev)
+    _check("lists", lists, torch.int32, (n_tiles, k_cap), dev)
+    _check("counts", counts, torch.int32, (n_tiles,), dev)
+    dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
+    _launch("K4_scatter_rows", dFg.data_ptr(), lists.data_ptr(),
+            counts.data_ptr(), dF.data_ptr(), n_tiles, k_cap, _stream(dFg))
+    return dF
