@@ -7,18 +7,26 @@ Run from the repository root on a machine with an NVIDIA H100:
 It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
 
   1. holds each kernel (K1 forward, K2 backward, K3 ranksum reduction,
-     K4 scatter-add reduction) against its plain PyTorch version on the
-     card, at the mapper's full-width shapes (64x1024 image, 4x16 tiles,
-     chunk 256, 768 slots per tile, 100k surfels) and K1/K2 also at the
+     K4 scatter-add reduction, K5 backward fused with the scatter-add, K6
+     overflow scatter-add) against its plain PyTorch version on the card,
+     at the mapper's full-width shapes (64x1024 image, 4x16 tiles, chunk
+     256, 768 slots per tile, 100k surfels) and K1/K2 also at the
      small-pool geometry (8x32 tiles, chunk 256, 1024 slots), and times
      kernel, plain version and, for the reductions, one torch.index_add_;
+     K5 is also held against K2 + K4, and K6 runs under the full-width
+     occurrence plan (its uncapped overflow count printed beside the cap)
+     and under a truncated ranksum plan, each held against K4;
   2. holds ``render`` on the cuda backend against the eager golden
-     renderer (values and gradients) on a reduced scene;
+     renderer (values and gradients) on a reduced scene, and the
+     gradients of scatter "fused" and "plan" and of layout "bucketed"
+     against that render and the eager renderer;
   3. runs the slice: a synthetic 64x1024 sweep through the device
      preprocessing, a ~100k-surfel pool, and ``Mapper.update_model`` with
      the configs/kitti/kitti.yaml settings on two keyframes (ranksum
-     reduction), then one more update with ``scatter="rmw"``; it checks
-     each kernel's launch count and the rendered depth of the result.
+     reduction), then one more update each with ``scatter`` "rmw",
+     "fused" and "plan"; it checks each kernel's launch count and the
+     rendered depth of the result, and compares the four reductions on
+     one pool.
 
 It imports nothing of JAX.  It prints one line per kernel check, the
 kernels' JSON line, the card's name and power limit, and last
@@ -117,8 +125,9 @@ def check_kernels(dev, rng) -> dict:
     shapes; returns the per-kernel numbers of the JSON line."""
     from splatloam_tpu_torch.ops.rasterizer import binning, common, kernels
     from splatloam_tpu_torch.ops.rasterizer.api import RenderParams
+    from splatloam_tpu_torch.ops.rasterizer import cuda_raster
     from splatloam_tpu_torch.ops.rasterizer.cuda_raster import (
-        RS_GROUP, prepare_tiles)
+        RS_GPS, RS_GROUP, prepare_tiles)
 
     results = {}
     geos = [("main", N_SURFELS, dict(tile_h=4, tile_w=16, chunk=256,
@@ -249,6 +258,104 @@ def check_kernels(dev, rng) -> dict:
               f"{tiles.rays_t.shape[1]} px, K {tiles.lists.shape[1]}, "
               f"composited pairs {pairs:.0f}, ranksum entries {E}, "
               f"real slots {n_real}", flush=True)
+        results.update(check_fused_and_overflow(
+            dev, kernels, binning, cuda_raster, tiles, bargs, bkw, dFg, dF4,
+            n_rows, float(slots.sum()), n_touched, pairs, RS_GROUP * RS_GPS))
+    return results
+
+
+def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
+                             bargs, bkw, dFg, dF4, n_rows, n_comp, n_touched,
+                             pairs, rs_step) -> dict:
+    """Phase 1, K5 and K6 at the main path's shapes, on the tiles and the
+    K2 rows of check_kernels; K4's result dF4 is the reduction oracle."""
+    results = {}
+    rows = dFg.reshape(-1, 16)
+    # sums of the same rows in another order (atomics: run-dependent)
+    tol_sum = 1e-5 * max(1.0, float(dF4.abs().max()))
+
+    dF5 = kernels.raster_bwd_fused(*bargs, n_rows, **bkw)
+    dF5_p = kernels.raster_bwd_fused_plain(*bargs, n_rows, **bkw)
+    torch.cuda.synchronize()
+    # K2's tolerance against its plain version, for the same reason
+    err5 = float((dF5 - dF5_p).abs().max())
+    tol5 = 2e-3 * float(dF5_p.abs().max())
+    err54 = float((dF5 - dF4).abs().max())
+    print(f"[kernel] K5_bwd_fused[main] vs K2 + K4 kernels: max_abs_err "
+          f"{err54:.3e} (tol {tol_sum:.3e})", flush=True)
+    if not err54 <= tol_sum:
+        fail(f"K5 disagrees with K2 + K4: {err54} > {tol_sum}")
+    ms5 = time_ms(lambda: kernels.raster_bwd_fused(*bargs, n_rows, **bkw))
+    pms5 = time_ms(lambda: kernels.raster_bwd_fused_plain(*bargs, n_rows,
+                                                          **bkw), 3)
+    report("K5_bwd_fused[main]", err5, tol5, ms5, pms5)
+    # K2's inputs, one 64-byte atomic row per composited slot, the touched
+    # pool rows
+    b5, by5 = bound(nbytes(*bargs) + (n_comp + n_touched) * 64,
+                    pairs * BWD_OPS_PER_PAIR)
+    results["K5_bwd_fused"] = dict(max_abs_err=err5, ms=ms5, plain_ms=pms5,
+                                   bound_ms=b5, bound_by=by5,
+                                   library_ms=None)
+
+    # K6 under the full-width occurrence plan (prepare_tiles' ov_cap)
+    lists = tiles.lists
+    plan = cuda_raster.scatter_plan(lists, n_rows - 1)
+    ov_cap = plan.ov_slots.numel()
+    occ = torch.bincount(lists.reshape(-1).long(), minlength=n_rows)[:-1]
+    uncapped = int(torch.clamp(occ - cuda_raster.PLAN_M, min=0).sum())
+    n_ov = int(plan.n_ov)
+    print(f"[kernel] plan overflow at full width: n_ov {uncapped} uncapped, "
+          f"ov_cap {ov_cap}, kept {n_ov}, dropped {uncapped - n_ov}",
+          flush=True)
+    if n_ov == 0:
+        fail("the full-width plan has no overflow: K6 would do no work")
+    rows1 = torch.cat([rows, rows.new_zeros((1, 16))])
+    ov_rows = rows1[plan.ov_slots.long()]
+    args6 = (ov_rows, plan.ov_ids, plan.n_ov, n_rows)
+    dF6 = kernels.scatter_overflow(*args6)
+    dF6_p = kernels.scatter_overflow_plain(*args6)
+    torch.cuda.synchronize()
+    err6 = float((dF6 - dF6_p).abs().max())
+    tol6 = 1e-5 * max(1.0, float(ov_rows.abs().max()))
+    dF_plan = cuda_raster._scatter_with_plan(rows, plan, n_rows)
+    err_p4 = float((dF_plan - dF4)[:-1].abs().max())
+    print(f"[kernel] plan gather + K6 vs K4: max_abs_err {err_p4:.3e} "
+          f"(tol {tol_sum:.3e})", flush=True)
+    if not err_p4 <= tol_sum:
+        fail(f"plan gather + K6 disagrees with K4: {err_p4} > {tol_sum}")
+    ms6 = time_ms(lambda: kernels.scatter_overflow(*args6))
+    pms6 = time_ms(lambda: kernels.scatter_overflow_plain(*args6))
+    ids6 = plan.ov_ids[:n_ov].long()
+    rows6 = ov_rows[:n_ov]
+    lib6 = time_ms(lambda: rows.new_zeros((n_rows, 16)).index_add_(
+        0, ids6, rows6))
+    report("K6_scatter_overflow[plan]", err6, tol6, ms6, pms6, lib6)
+    b6, by6 = bound(n_ov * 68 + int(torch.unique(ids6).numel()) * 64,
+                    n_ov * 16)
+    results["K6_scatter_overflow"] = dict(max_abs_err=err6, ms=ms6,
+                                          plain_ms=pms6, bound_ms=b6,
+                                          bound_by=by6, library_ms=lib6)
+
+    # K3 + K6 under a truncated ranksum plan: keep the last step multiple
+    # below the real slot count, so 0 < spilled real entries <= ov_cap
+    n_real = int(tiles.counts.sum())
+    e_cap = (n_real - 1) // rs_step * rs_step
+    trunc = (e_cap + rs_step / 2) / lists.numel()
+    tplan = cuda_raster.RanksumPlan(*binning.build_ranksum_plan(
+        lists, n_rows - 1, group=cuda_raster.RS_GROUP,
+        gps=cuda_raster.RS_GPS, trunc_frac=trunc))
+    n_ov_t = int(tplan.n_ov)
+    dF_t = cuda_raster._reduce_rows_with_ranksum(rows, tplan, n_rows)
+    torch.cuda.synchronize()
+    err_t4 = float((dF_t - dF4)[:-1].abs().max())
+    print(f"[kernel] truncated ranksum: trunc_frac {trunc:.6f}, kept "
+          f"{tplan.pos.numel()} of {lists.numel()} entries, real {n_real}, "
+          f"n_ov {n_ov_t} (ov_cap {tplan.ov_slots.numel()}); K3 + K6 vs K4: "
+          f"max_abs_err {err_t4:.3e} (tol {tol_sum:.3e})", flush=True)
+    if n_ov_t <= 0:
+        fail("the truncated plan spilled no real entry")
+    if not err_t4 <= tol_sum:
+        fail(f"truncated K3 + K6 disagrees with K4: {err_t4} > {tol_sum}")
     return results
 
 
@@ -291,6 +398,41 @@ def check_render_parity(dev, rng) -> None:
         print(f"[parity] grad {name}: max_abs_err {err:.3e} (tol {tol:.3e})")
         if not err <= tol:
             fail(f"render gradient {name} disagrees with the eager renderer")
+
+    # the other reductions and the bucketed layout against the tiled
+    # ranksum render (the same sums in another order: 1e-5 * max(1, max|g|))
+    # and the eager renderer; the bucketed runs keep the small bucket at one
+    # chunk (K/C = 1) for the quarter of the tiles with the fewest surfels
+    from splatloam_tpu_torch.ops.rasterizer.cuda_raster import prepare_tiles
+    names = ["xyz", "scales", "quat", "opacity", "T_cw"]
+    for label, kw in [
+            ("fused", dict(scatter="fused")), ("plan", dict(scatter="plan")),
+            ("bucketed-fused", dict(layout="bucketed", scatter="fused",
+                                    bucket_frac=0.75)),
+            ("bucketed-ranksum", dict(layout="bucketed", scatter="ranksum",
+                                      bucket_frac=0.75))]:
+        p = params._replace(**kw)
+        tiles = prepare_tiles(*scene, p)
+        if label.startswith("bucketed") and \
+                int(tiles.counts_s.max()) >= tiles.lists_s.shape[1]:
+            fail(f"{label}: a small-bucket tile was cut, so the tiled "
+                 "render is no oracle")
+        leaves_v = [a.clone().requires_grad_(True) for a in scene[:5]]
+        g_v = torch.autograd.grad(
+            loss(rasterize(*leaves_v, scene[5], p, tiles=tiles)), leaves_v)
+        errs = []
+        for name, a, b, c, rel in zip(names, g_v, g_cuda, g_ref,
+                                      [2e-3] * 4 + [3e-3]):
+            tol_rs = 1e-5 * max(1.0, float(b.abs().max()))
+            tol_e = rel * float(c.abs().max()) + 1e-6
+            err_rs = float((a - b).abs().max())
+            err_e = float((a - c).abs().max())
+            errs.append(f"{name} {err_rs:.2e}/{err_e:.2e}")
+            if not (err_rs <= tol_rs and err_e <= tol_e):
+                fail(f"{label} gradient {name}: {err_rs} vs the ranksum "
+                     f"render (tol {tol_rs}), {err_e} vs eager (tol {tol_e})")
+        print(f"[parity] grad {label} vs ranksum render / eager: "
+              f"{', '.join(errs)}", flush=True)
 
 
 def run_slice(dev, rng, overrides=()) -> dict:
@@ -397,25 +539,107 @@ def run_slice(dev, rng, overrides=()) -> dict:
     if not (cover > 0.9 and med_l1 < 0.25):
         fail("the optimized map does not reproduce the keyframe")
 
-    # the same update with the scatter-add reduction (the rebin-1 choice)
-    cfg_rmw = copy.deepcopy(cfg)
-    cfg_rmw.compute.scatter = "rmw"
-    cfg_rmw.mapping.num_iterations = 31
-    mapper_rmw = Mapper(cfg_rmw, device=dev, seed=SEED)
-    mapper_rmw.register_model(model)
-    kernels.reset_launch_counts()
-    mapper_rmw.update_model(frames[1])
-    torch.cuda.synchronize()
-    launches_rmw = {k: v.launches for k, v in kernels.KERNELS.items()}
-    print(f"[slice] rmw update: {mapper_rmw.last_iters} iterations, loss EMA "
-          f"{float(mapper_rmw.last_ema):.5f}, launches {launches_rmw}")
+    # the same update with each other reduction: scatter-add (the rebin-1
+    # choice), fused into the backward, and the occurrence plan
+    def update_with(scatter):
+        cfg_m = copy.deepcopy(cfg)
+        cfg_m.compute.scatter = scatter
+        cfg_m.mapping.num_iterations = 31
+        mapper_m = Mapper(cfg_m, device=dev, seed=SEED)
+        mapper_m.register_model(model)
+        kernels.reset_launch_counts()
+        mapper_m.update_model(frames[1])
+        torch.cuda.synchronize()
+        counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+        ema = float(mapper_m.last_ema)
+        print(f"[slice] {scatter} update: {mapper_m.last_iters} iterations, "
+              f"loss EMA {ema:.5f}, launches {counts}")
+        if not np.isfinite(ema):
+            fail(f"{scatter} loss EMA not finite")
+        return counts
+
+    launches_rmw = update_with("rmw")
     if launches_rmw["K4_scatter_rows"] == 0:
         fail("K4_scatter_rows was not launched on the rmw path")
-    if not np.isfinite(float(mapper_rmw.last_ema)):
-        fail("rmw loss EMA not finite")
     launches["K4_scatter_rows"] = launches_rmw["K4_scatter_rows"]
+    launches_fused = update_with("fused")
+    if launches_fused["K5_bwd_fused"] == 0 or any(
+            launches_fused[k] for k in ("K2_bwd", "K3_ranksum",
+                                        "K4_scatter_rows")):
+        fail("the fused path must launch K5 and none of K2, K3, K4")
+    launches["K5_bwd_fused"] = launches_fused["K5_bwd_fused"]
+    launches_plan = update_with("plan")
+    if launches_plan["K2_bwd"] == 0 or \
+            launches_plan["K6_scatter_overflow"] == 0:
+        fail("the plan path must launch K2 and K6")
+    launches["K6_scatter_overflow"] = launches_plan["K6_scatter_overflow"]
     profile_optimize(cfg, mapper, model)
+    compare_reductions(cfg, mapper, model, rng)
     return launches
+
+
+def compare_reductions(cfg, mapper, model, rng) -> None:
+    """The four reductions on the same pool, keyframe and 32 Adam
+    iterations: ms per iteration on the host clock, measured twice (the
+    modes in order, then in reverse, against host drift), and each
+    reduction's device time per iteration alone (CUDA events on one
+    rebin's tiles: the backward with its reduction minus K2 on the same
+    inputs; for "fused", K5 minus K2)."""
+    from splatloam_tpu_torch.ops.rasterizer import (binning, common,
+                                                    cuda_raster, kernels)
+    from splatloam_tpu_torch.slam.mapper import MapperPrograms
+
+    kf = mapper._stack_keyframes(model.kf_stack["K"].shape[0])
+    surf, adam = model.surfels, model.adam
+    sc = torch.exp(surf.params.log_scale)
+    op = torch.sigmoid(surf.params.logit_opacity) * surf.active
+    scene = (surf.params.xyz, sc, surf.params.quat, op, kf.T_cw[1], kf.K[1])
+    modes = ("rmw", "ranksum", "fused", "plan")
+    progs = {}
+    for scatter in modes:
+        cfg_m = copy.deepcopy(cfg)
+        cfg_m.compute.scatter = scatter
+        cfg_m.mapping.num_iterations = 31
+        progs[scatter] = MapperPrograms(cfg_m, H, W, model.capacity)
+    idx = torch.ones((progs["rmw"].n_blocks(),), dtype=torch.long,
+                     device=model.device)
+    it_ms = {m: [] for m in modes}
+    for scatter in modes + modes[::-1]:
+        pr = progs[scatter]
+        if not it_ms[scatter]:
+            pr.optimize(surf, adam, kf, idx)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pr.optimize(surf, adam, kf, idx)
+        torch.cuda.synchronize()
+        it_ms[scatter].append((time.perf_counter() - t0) * 1e3
+                              / pr.n_iters())
+
+    parts = []
+    for scatter in modes:
+        prm = progs[scatter].params
+        tiles = cuda_raster.prepare_tiles(*scene, prm,
+                                          margin_px=cfg.compute.bin_margin_px)
+        F = binning.pack_features(common.pack_surfels(*scene)).contiguous()
+        static = cuda_raster._StaticArgs(
+            chunk=prm.chunk, width=W, with_median=prm.with_median,
+            with_dist=prm.with_dist, fused=scatter == "fused")
+        targs = (F, tiles.lists, tiles.counts, tiles.rays_t, tiles.pix_t)
+        out, tb = cuda_raster._forward_tiled(*targs, static)
+        g = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32),
+                         device=model.device)
+        bwd_ms = time_ms(lambda: cuda_raster._backward_tiled(
+            *targs, tb, out, g, static, tiles.plan))
+        k2_ms = time_ms(lambda: kernels.raster_bwd(
+            *targs, tb, out, g, chunk=prm.chunk, width=W,
+            with_dist=prm.with_dist))
+        red = "K5 - K2" if scatter == "fused" else "reduction"
+        parts.append(f"{scatter} {it_ms[scatter][0]:.3f}/"
+                     f"{it_ms[scatter][1]:.3f} ms/iteration, {red} "
+                     f"{bwd_ms - k2_ms:.4f} ms (backward {bwd_ms:.4f}, "
+                     f"K2 {k2_ms:.4f})")
+    print(f"[compare] 32 iterations each on one pool: {'; '.join(parts)}",
+          flush=True)
 
 
 def profile_optimize(cfg, mapper, model) -> None:

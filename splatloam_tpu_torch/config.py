@@ -259,10 +259,12 @@ class ComputeConfig:
     # rebinning points.
     bin_margin_px: float = 1.5
     # Gradient reduction: "ranksum" (rebin-time id-sort + segmented sum
-    # kernel) or "rmw" (atomic scatter-add kernel); both exact up to
-    # float summation order.  The ranksum plan costs one argsort per
-    # rebin point, so rebin_every=1 callers prefer "rmw".  ("fused" and
-    # "plan" are JAX-package reductions not ported yet.)
+    # kernel), "rmw" (atomic scatter-add kernel), "plan" (rebin-time
+    # occurrence tables: gather-sum + overflow scatter kernel) or "fused"
+    # (the scatter-add inside the backward kernel); all exact up to
+    # float summation order.  The ranksum and occurrence plans cost one
+    # argsort per rebin point, so rebin_every=1 callers prefer "rmw" or
+    # "fused".
     scatter: str = "ranksum"
     # Pick tile/chunk geometry from the live pool capacity instead of
     # the fields above (ops/rasterizer/api.adaptive_geometry).

@@ -3,195 +3,19 @@
 // Replaces splatloam_tpu/ops/rasterizer/pallas_raster.py:_bwd_kernel with
 // fused=False.
 //
-// Per tile, replay the live chunks (those the forward ran: chunk-start T
-// above 1e-4 for some pixel, within the tile's count) in reverse with O(P)
-// suffix carries (sum of w*phi, w and w*m over later surfels), and write
-// each slot's gradient row, summed over the tile's pixels, into
-// dFg [T, K, 16]: p, gu, gv, n (3 each), opacity, centre depth, cx, cy.
-// The median channel is not differentiated; no gradient flows where alpha
-// is capped at 0.999.  Rows of slots the forward did not composite
-// (dead chunks, padding slots) are written as zeros.
+// Writes each slot's gradient row, summed over the tile's pixels, into
+// dFg [T, K, 16]; rows of slots the forward did not composite are zeros.
+// The reduction to per-surfel rows follows in K3, K4 or the occurrence
+// plan (+ K6).
 //
 // Bound on the H100: operations.  Each (pixel, slot) pair evaluates the
-// geometry three times (below) plus ~80 operations of gradient algebra
-// and a 16-value warp reduction.
+// geometry three times plus ~80 operations of gradient algebra and a
+// 16-value warp reduction.
 //
-// Design: one block per tile, one thread per pixel.  A chunk's features
-// are staged in shared memory as in K1.  Each pixel needs T_i, the
-// transmittance in front of surfel i, while walking the chunk backwards;
-// T_i is rebuilt forward from the chunk-start T saved by K1 (dividing the
-// final T by (1 - alpha) loses precision at alpha up to 0.999).  A [P, C]
-// buffer of T_i does not fit in shared memory at 256-pixel tiles, so the
-// chunk is cut into sub-chunks of 32 slots: one forward pass stores T at
-// every sub-chunk start, then each sub-chunk, last first, rebuilds its 32
-// T_i into shared memory and walks them backwards.  Every slot's 16
-// per-pixel terms are reduced over a warp with shuffles and over the
-// block's warps through shared memory; the block owns its tile's rows, so
-// no global atomics are needed.
-#include <cuda_runtime.h>
-
-#include "raster_common.cuh"
-
-using namespace splat;
-
-constexpr int SUB = 32;
-
-__global__ void raster_bwd_kernel(
-    const float* __restrict__ F, const int* __restrict__ lists,
-    const int* __restrict__ counts, const float* __restrict__ rays,
-    const float* __restrict__ pix, const float* __restrict__ tbound,
-    const float* __restrict__ outs, const float* __restrict__ gout,
-    float* __restrict__ dFg, int K, int C, float width, float inv_width,
-    int with_dist) {
-  extern __shared__ float smem[];
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int P = blockDim.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
-  const int NW = P >> 5;
-  float* s_feat = smem;                      // [C, FS]
-  float* s_tck = s_feat + C * FS;            // [C/SUB, P] T at sub-chunk starts
-  float* s_ti = s_tck + (C / SUB) * P;       // [SUB, P] T_i of one sub-chunk
-  float* s_red = s_ti + SUB * P;             // [SUB, NW, 16] warp partials
-
-  const int nc = K / C;
-  const int count = counts[t];
-  const int n_act = (count + C - 1) / C;
-  const size_t px_idx = (size_t)t * P + p;
-  const float* tb = tbound + px_idx * nc;
-  int n_live = 0;
-  for (int i = 0; i < n_act; ++i)
-    n_live += __syncthreads_or(tb[i] > T_EPS) ? 1 : 0;
-
-  float* rows = dFg + (size_t)t * K * 16;
-  // rows of chunks the forward skipped, and of padding slots past count
-  const int first_zero = n_live > 0 ? min(count, n_live * C) : 0;
-  for (int idx = first_zero * 16 + p; idx < K * 16; idx += P)
-    rows[idx] = 0.0f;
-  if (n_live == 0) return;
-
-  const float rx = rays[px_idx * 3 + 0];
-  const float ry = rays[px_idx * 3 + 1];
-  const float rz = rays[px_idx * 3 + 2];
-  const float pu = pix[px_idx * 2 + 0];
-  const float pv = pix[px_idx * 2 + 1];
-  const float* gp = gout + px_idx * 8;
-  const float gD = gp[0], gA = gp[1], gN0 = gp[2], gN1 = gp[3], gN2 = gp[4];
-  const float gdist = gp[6];
-  const float D_total = outs[px_idx * 8 + 0];
-  const float A_total = outs[px_idx * 8 + 1];
-  const int* list = lists + (size_t)t * K;
-
-  float S_c = 0.0f, W_c = 0.0f, MD_c = 0.0f;   // strict-suffix carries
-  for (int i = n_live - 1; i >= 0; --i) {
-    __syncthreads();   // s_feat / s_red of the previous chunk are consumed
-    const int n_c = min(C, count - i * C);
-    stage_chunk(s_feat, F, list, i * C, n_c, p, P);
-    __syncthreads();
-
-    float T = tb[i];
-    for (int c = 0; c < n_c; ++c) {
-      if (c % SUB == 0) s_tck[(c / SUB) * P + p] = T;
-      const Geo g = splat_geometry(s_feat + c * FS, rx, ry, rz, pu, pv,
-                                   width, inv_width);
-      T *= 1.0f - g.alpha;
-    }
-
-    const int n_sub = (n_c + SUB - 1) / SUB;
-    for (int s = n_sub - 1; s >= 0; --s) {
-      const int c0 = s * SUB;
-      const int c1 = min(c0 + SUB, n_c);
-      T = s_tck[s * P + p];
-      for (int c = c0; c < c1; ++c) {
-        s_ti[(c - c0) * P + p] = T;
-        const Geo g = splat_geometry(s_feat + c * FS, rx, ry, rz, pu, pv,
-                                     width, inv_width);
-        T *= 1.0f - g.alpha;
-      }
-      for (int c = c1 - 1; c >= c0; --c) {
-        const float* f = s_feat + c * FS;
-        const Geo g = splat_geometry(f, rx, ry, rz, pu, pv, width,
-                                     inv_width);
-        const float Ti = s_ti[(c - c0) * P + p];
-        const float alpha = g.alpha;
-        const float w = alpha * Ti;
-        const float wm = w * g.m;
-        float phi = gD * g.m + gA + (gN0 * f[9] + gN1 * f[10] + gN2 * f[11]);
-        float A_prev = 0.0f, W_suf = 0.0f;
-        if (with_dist) {
-          W_suf = W_c;
-          const float MD_suf = MD_c;
-          A_prev = A_total - w - W_suf;
-          const float D_prev = D_total - wm - MD_suf;
-          phi += gdist * (g.m * A_prev - D_prev + MD_suf - g.m * W_suf);
-        }
-        const float one_m_a = fmaxf(1.0f - alpha, 1e-3f);
-        const float galpha = alpha > 0.0f ? Ti * phi - S_c / one_m_a : 0.0f;
-        float gm = w * gD;
-        if (with_dist) gm += w * gdist * (A_prev - W_suf);
-        const bool live = g.ok && (g.alpha_raw < ALPHA_MAX);
-        const float g_opa = live ? galpha * g.g_exp : 0.0f;
-        const float g_rho = live ? galpha * (-0.5f) * g.alpha_raw : 0.0f;
-        const bool u3 = !g.use2;
-        const float g_u = u3 ? g_rho * 2.0f * g.uu : 0.0f;
-        const float g_v = u3 ? g_rho * 2.0f * g.vv : 0.0f;
-        const float g_t = g_u * g.A1 + g_v * g.A2 + (u3 ? gm : 0.0f);
-        const float g_np = g_t / g.A3;
-        const float g_A3 = -g_t * g.tstar / g.A3;
-        const float g_A1 = g_u * g.tstar;
-        const float g_A2 = g_v * g.tstar;
-        const float g_dx =
-            g.use2 ? g_rho * 2.0f * FILTER_INV_SQUARE * g.dx : 0.0f;
-        const float g_dy =
-            g.use2 ? g_rho * 2.0f * FILTER_INV_SQUARE * g.dy : 0.0f;
-
-        float v[16];
-        v[0] = g_np * f[9] - g_u * f[3] - g_v * f[6];
-        v[1] = g_np * f[10] - g_u * f[4] - g_v * f[7];
-        v[2] = g_np * f[11] - g_u * f[5] - g_v * f[8];
-        v[3] = rx * g_A1 - g_u * f[0];
-        v[4] = ry * g_A1 - g_u * f[1];
-        v[5] = rz * g_A1 - g_u * f[2];
-        v[6] = rx * g_A2 - g_v * f[0];
-        v[7] = ry * g_A2 - g_v * f[1];
-        v[8] = rz * g_A2 - g_v * f[2];
-        v[9] = rx * g_A3 + g_np * f[0] + gN0 * w;
-        v[10] = ry * g_A3 + g_np * f[1] + gN1 * w;
-        v[11] = rz * g_A3 + g_np * f[2] + gN2 * w;
-        v[12] = g_opa;
-        v[13] = g.use2 ? gm : 0.0f;
-        v[14] = -g_dx;
-        v[15] = -g_dy;
-
-        S_c += w * phi;
-        W_c += w;
-        MD_c += wm;
-
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
-        }
-        if (lane == 0) {
-          float* r = s_red + ((c - c0) * NW + warp) * 16;
-#pragma unroll
-          for (int k = 0; k < 16; ++k) r[k] = v[k];
-        }
-      }
-      __syncthreads();
-      for (int idx = p; idx < (c1 - c0) * 16; idx += P) {
-        const int jj = idx >> 4;
-        const int k = idx & 15;
-        float acc = 0.0f;
-        for (int wi = 0; wi < NW; ++wi) acc += s_red[(jj * NW + wi) * 16 + k];
-        rows[(size_t)(i * C + c0 + jj) * 16 + k] = acc;
-      }
-      __syncthreads();
-    }
-  }
-}
+// Design: raster_bwd.cuh (one block per tile, one thread per pixel, T_i
+// rebuilt per 32-slot sub-chunk); the block owns its tile's rows, so no
+// global atomics are needed.
+#include "raster_bwd.cuh"
 
 extern "C" int launch_raster_bwd(const float* F, const int* lists,
                                  const int* counts, const float* rays,
@@ -200,16 +24,7 @@ extern "C" int launch_raster_bwd(const float* F, const int* lists,
                                  float* dFg, int n_tiles, int K, int C,
                                  int P, float width, float inv_width,
                                  int with_dist, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(C * FS + (C / SUB) * P + SUB * P + SUB * (P / 32) * 16) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      raster_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n_tiles == 0) return 0;
-  raster_bwd_kernel<<<n_tiles, P, smem, stream>>>(
-      F, lists, counts, rays, pix, tbound, outs, g, dFg, K, C, width,
-      inv_width, with_dist);
-  return (int)cudaGetLastError();
+  return splat::launch_raster_bwd_impl<false>(
+      F, lists, counts, rays, pix, tbound, outs, g, dFg, n_tiles, K, C, P,
+      width, inv_width, with_dist, stream);
 }

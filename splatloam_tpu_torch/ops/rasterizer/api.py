@@ -37,8 +37,24 @@ class RenderParams(NamedTuple):
     binner: str = "sorted"
     cap_ty: int = 9
     cap_tx: int = 9
-    # gradient reduction: "ranksum" (rebin-time id-sort + segmented-sum
-    # kernel) or "rmw" (atomic scatter-add kernel)
+    # slot layout of the kernels: "tiled" = padded [T, K] per-tile lists,
+    # "bucketed" = two-capacity tile buckets (the top bucket_frac tiles by
+    # count keep the full capacity, the rest truncate to bucket_k_small;
+    # 0 = one chunk).  The JAX package's "flat" layout is not ported yet
+    # and raises NotImplementedError.
+    layout: str = "tiled"
+    bucket_frac: float = 0.5
+    bucket_k_small: int = 0
+    # gradient reduction of the backward's per-slot rows:
+    #   "rmw"     - atomic scatter-add kernel (K4);
+    #   "ranksum" - rebin-time id-sort + segmented-sum kernel (K3), plus
+    #               the overflow scatter (K6) when the plan is truncated
+    #               (cuda_raster.RS_TRUNC);
+    #   "plan"    - rebin-time occurrence tables: gather-sum of each
+    #               surfel's first 4 rows + the overflow scatter (K6);
+    #   "fused"   - the scatter-add folded into the backward kernel (K5).
+    # All are exact up to float summation order.  Under "bucketed" only
+    # "ranksum" keeps a plan; every other mode runs K5 per bucket.
     scatter: str = "rmw"
 
 
@@ -74,8 +90,9 @@ def rasterize(xyz, scaling, rotation, opacity, T_cw, K,
               params: RenderParams, tiles=None) -> dict:
     """Dispatch to a rasterizer backend; returns the raw channel dict.
 
-    ``tiles``: optional frozen TileAssignment (cuda backend only) to
-    amortize binning across iterations; the eager path ignores it.
+    ``tiles``: optional frozen TileAssignment or BucketedTiles (cuda
+    backend only) to amortize binning across iterations; the eager path
+    ignores it.
     """
     if _resolve_backend(params.backend) == "eager":
         return rasterize_eager(xyz, scaling, rotation, opacity, T_cw, K,
@@ -87,7 +104,8 @@ def rasterize(xyz, scaling, rotation, opacity, T_cw, K,
 
 def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K,
                   params: RenderParams, margin_px: float = 0.0):
-    """Precompute a frozen TileAssignment (None on the eager backend)."""
+    """Precompute a frozen TileAssignment, or BucketedTiles under
+    ``layout="bucketed"`` (None on the eager backend)."""
     if _resolve_backend(params.backend) != "cuda":
         return None
     from .cuda_raster import prepare_tiles as _prep

@@ -1,9 +1,11 @@
 """Tile binning for the tiled rasterizer (non-differentiable torch ops).
 
-Counterpart of splatloam_tpu/ops/rasterizer/binning.py, tiled layout only:
-per-tile depth-ordered surfel lists of fixed capacity (overflow drops the
-farthest splats), per-tile counts, the rebin-time ranksum plan of the
-gradient reduction, and the pixel <-> tile layout helpers.  Integer
+Counterpart of splatloam_tpu/ops/rasterizer/binning.py, tiled and
+bucketed layouts: per-tile depth-ordered surfel lists of fixed capacity
+(overflow drops the farthest splats), per-tile counts, the two-capacity
+tile buckets, the rebin-time plans of the gradient reduction (ranksum,
+optionally truncated, and the occurrence tables), and the pixel <-> tile
+layout helpers.  Integer
 outputs equal the JAX package's exactly: every sort is stable, as
 ``jnp.argsort`` is, and top-k ties resolve to the lower index, as
 ``lax.top_k`` does.
@@ -183,8 +185,52 @@ def _emit_sorted_keys(packed: common.PackedSurfels, height: int,
     return sorted_keys, all_ids[perm]
 
 
+def build_scatter_plan(lists: torch.Tensor, n_surfels: int, m: int = 4,
+                       ov_cap: int = 0):
+    """Occurrence tables of the gather-sum gradient reduction
+    (``scatter="plan"``).
+
+    One stable argsort of the flat tile lists by surfel id per rebin; for
+    each surfel the flat slot positions of its first ``m`` occurrences
+    (``occ`` [N+1, m], pad slot T*K), plus a compacted overflow list of
+    (slot, id) pairs for the occurrences beyond m (the padding id N
+    excluded).  Overflow entries past ``ov_cap`` are dropped, as in the
+    JAX package.
+
+    Returns (occ [N+1, m] int32, ov_slots [ov_cap] int32 (pad T*K),
+    ov_ids [ov_cap] int32 (pad N), n_ov [] int32).
+    """
+    tk = lists.numel()
+    n = n_surfels
+    dev = lists.device
+    if ov_cap <= 0:
+        ov_cap = max(8, tk // 4)
+    ids = lists.reshape(-1).long()
+    order = _argsort(ids)
+    ids_sorted = ids[order]
+    starts = torch.searchsorted(ids_sorted, torch.arange(n + 2, device=dev))
+    cnt = starts[1:] - starts[:-1]                       # [N+1]
+    j = torch.arange(m, device=dev)
+    idx = starts[:-1, None] + j[None, :]
+    valid = j[None, :] < torch.clamp(cnt, max=m)[:, None]
+    occ = torch.where(valid, order[torch.clamp(idx, 0, tk - 1)], tk)
+    # overflow: occurrence rank >= m, excluding the padding id n
+    r = torch.arange(tk, device=dev) - starts[:-1][ids_sorted]
+    is_ov = (r >= m) & (ids_sorted != n)
+    ovpos = torch.cumsum(is_ov.to(torch.int64), dim=0) - 1
+    keep = is_ov & (ovpos < ov_cap)          # positions past the cap drop
+    ov_slots = torch.full((ov_cap,), tk, dtype=torch.int64, device=dev)
+    ov_slots[ovpos[keep]] = order[keep]
+    ov_ids = torch.full((ov_cap,), n, dtype=torch.int64, device=dev)
+    ov_ids[ovpos[keep]] = ids_sorted[keep]
+    n_ov = torch.clamp(is_ov.sum(), max=ov_cap)
+    return (occ.to(torch.int32), ov_slots.to(torch.int32),
+            ov_ids.to(torch.int32), n_ov.to(torch.int32))
+
+
 def build_ranksum_plan(lists: torch.Tensor, n_surfels: int,
-                       group: int = 128, gps: int = 64):
+                       group: int = 128, gps: int = 64,
+                       trunc_frac: float = 0.0, ov_cap: int = 0):
     """Rebin-time plan of the segmented-sum gradient reduction.
 
     One stable argsort of the flat tile lists by surfel id; ranks are
@@ -193,7 +239,16 @@ def build_ranksum_plan(lists: torch.Tensor, n_surfels: int,
     [E/group] int32 first rank of each group, rank_of_id [N+1] int32 with
     absent ids mapped to the never-written dummy row), E = T*K rounded up
     to a multiple of gps*group.  Pad entries point at slot 0 with rank
-    -1 and contribute nothing.
+    -1 and contribute nothing.  ``lists`` may be any flat slot layout.
+
+    Sorted truncation (0 < trunc_frac < 1): the padding id N is the
+    largest, so pads form a suffix of the sorted order; the plan keeps the
+    first E = max(step, T*K*trunc_frac rounded down to a step multiple)
+    entries and returns three more fields, an overflow list of the next
+    ``ov_cap`` (default gps*group) sorted entries: ov_slots [<= ov_cap]
+    int32 slot positions, ov_ids [<= ov_cap] int32 ids, and n_ov [] int32
+    = clip(real entries - E, 0, ov_cap).  Real entries past E + ov_cap
+    are dropped, as in the JAX package.
     """
     tk = lists.numel()
     n_plus1 = n_surfels + 1
@@ -210,6 +265,22 @@ def build_ranksum_plan(lists: torch.Tensor, n_surfels: int,
     rank_of_id = torch.full((n_plus1,), r_alloc - 1, dtype=torch.int32,
                             device=dev)
     rank_of_id[ids_sorted] = rank
+
+    if 0.0 < trunc_frac < 1.0:
+        e_cap = max(step, int(tk * trunc_frac) // step * step)
+        if e_cap < tk:
+            if ov_cap <= 0:
+                ov_cap = step
+            pos = order[:e_cap].to(torch.int32)
+            rank_p = rank[:e_cap]
+            w_first = torch.clamp(rank_p[::group], min=0)
+            n_real = (ids != n_surfels).sum()
+            # shorter than ov_cap when fewer than ov_cap entries follow
+            ov_slots = order[e_cap:e_cap + ov_cap].to(torch.int32)
+            ov_ids = ids_sorted[e_cap:e_cap + ov_cap].to(torch.int32)
+            n_ov = torch.clamp(n_real - e_cap, 0, ov_cap).to(torch.int32)
+            return (pos, rank_p, w_first, rank_of_id, ov_slots, ov_ids,
+                    n_ov)
 
     e_pad = (tk + step - 1) // step * step
     pad = e_pad - tk
@@ -263,3 +334,27 @@ def pack_features(packed: common.PackedSurfels) -> torch.Tensor:
                    packed.opacity[:, None], packed.depth[:, None],
                    packed.center_xy], dim=1)
     return torch.cat([F, F.new_zeros((1, 16))], dim=0)
+
+
+def build_bucketed_lists(packed: common.PackedSurfels, height: int,
+                         width: int, tile_h: int, tile_w: int, k_big: int,
+                         k_small: int, q_big: int, cap_ty: int = 9,
+                         cap_tx: int = 9):
+    """Two-capacity tile buckets (``layout="bucketed"``): the ``q_big``
+    highest-count tiles keep ``k_big`` slots, the rest truncate to
+    ``k_small`` (the depth-ordered lists drop their farthest surfels, as
+    the capacity cap does).  Ties between equal counts keep tile order.
+
+    Returns (lists_b [q_big, k_big], counts_b, idx_b [q_big],
+    lists_s [T-q_big, k_small], counts_s, idx_s), int32, with idx_*
+    ascending.
+    """
+    lists, counts, _ = build_tile_lists_sorted(
+        packed, height, width, tile_h, tile_w, k_big, cap_ty, cap_tx)
+    order = _argsort(-counts)
+    idx_b = torch.sort(order[:q_big]).values
+    idx_s = torch.sort(order[q_big:]).values
+    lists_s = lists[idx_s][:, :k_small].contiguous()
+    counts_s = torch.clamp(counts[idx_s], max=k_small)
+    return (lists[idx_b], counts[idx_b], idx_b.to(torch.int32),
+            lists_s, counts_s, idx_s.to(torch.int32))

@@ -1,16 +1,25 @@
 """Tiled rasterizer on the hand-written CUDA kernels (forward + backward).
 
-Counterpart of splatloam_tpu/ops/rasterizer/pallas_raster.py, tiled layout
-and one view only:
+Counterpart of splatloam_tpu/ops/rasterizer/pallas_raster.py, tiled and
+bucketed layouts, one view only:
 
   * binning.py produces depth-ordered per-tile surfel lists (torch ops);
   * the forward kernel (K1) composites each tile's chunks front to back and
     saves every chunk's start transmittance;
   * the backward kernel (K2) replays the live chunks in reverse with O(P)
     suffix carries and writes per-slot feature-gradient rows;
-  * the rows reduce to per-surfel gradients by the rank-space segmented
-    sum (K3, ``scatter="ranksum"``) or by an atomic scatter-add (K4,
-    ``scatter="rmw"``);
+  * the rows reduce to per-surfel gradients by ``params.scatter``:
+      "ranksum" - the rank-space segmented sum (K3) over a rebin-time
+                  id-sort, and, when the plan is truncated (RS_TRUNC), the
+                  overflow scatter (K6) for the spilled real entries;
+      "rmw"     - an atomic scatter-add (K4);
+      "plan"    - rebin-time occurrence tables: a gather of each surfel's
+                  first 4 rows summed in torch, plus K6 for the rest;
+      "fused"   - no rows at all: K5 is K2 adding each slot's row into the
+                  pool inside the kernel;
+  * ``layout="bucketed"`` splits the tiles into two capacity buckets: K1
+    per bucket, then K2 per bucket + K3 with a ranksum plan, else K5 per
+    bucket;
   * gradients reach the surfel params and the pose through torch autograd
     of ``pack_surfels``.
 
@@ -31,16 +40,39 @@ from . import binning, common, kernels
 # padding unit); fixed so the plan equals the JAX package's
 RS_GROUP = 128
 RS_GPS = 64
-SCATTER_MODES = ("rmw", "ranksum")
+# sorted-truncation fraction of the ranksum plan (0 = keep all T*K slots;
+# 0 < f < 1 = keep the first f*T*K id-sorted entries plus an overflow list
+# reduced by K6)
+RS_TRUNC = 0.0
+# occurrence columns of the "plan" reduction, and the overflow lists'
+# padding unit (the JAX package's overflow chunk)
+PLAN_M = 4
+OV_CHUNK = 512
+SCATTER_MODES = ("rmw", "ranksum", "fused", "plan")
+LAYOUTS = ("tiled", "bucketed")
 
 
 class RanksumPlan(NamedTuple):
     """Rebin-time id-sort for the rank-space segmented-sum reduction
-    (binning.build_ranksum_plan)."""
+    (binning.build_ranksum_plan).  The ov_* fields exist only under sorted
+    truncation: the main path covers the first E id-sorted entries, the
+    real entries spilled past E go through K6."""
     pos: torch.Tensor         # [E] int32 flat slot position, id-sorted
     ranks: torch.Tensor       # [E] int32 dense rank of the entry's id (pad -1)
     w_first: torch.Tensor     # [E/group] int32 first rank of each group
     rank_of_id: torch.Tensor  # [N+1] int32 rank row per id (absent -> dummy)
+    ov_slots: torch.Tensor | None = None   # [<= OvCap] int32 slot positions
+    ov_ids: torch.Tensor | None = None     # [<= OvCap] int32 ids (pad N)
+    n_ov: torch.Tensor | None = None       # [] int32 live overflow entries
+
+
+class ScatterPlan(NamedTuple):
+    """Rebin-time occurrence tables of the gather-sum reduction
+    (binning.build_scatter_plan)."""
+    occ: torch.Tensor       # [N+1, M] int32 flat slot ids (pad T*K)
+    ov_slots: torch.Tensor  # [OvCap] int32 (pad T*K)
+    ov_ids: torch.Tensor    # [OvCap] int32 (pad N)
+    n_ov: torch.Tensor      # [] int32
 
 
 class TileAssignment(NamedTuple):
@@ -51,7 +83,26 @@ class TileAssignment(NamedTuple):
     counts: torch.Tensor   # [T] int32
     rays_t: torch.Tensor   # [T, P, 3]
     pix_t: torch.Tensor    # [T, P, 2]
-    plan: RanksumPlan | None = None   # None -> the scatter-add reduction
+    # None -> the scatter-add (K4) or fused (K5) reduction
+    plan: RanksumPlan | ScatterPlan | None = None
+
+
+class BucketedTiles(NamedTuple):
+    """Frozen binning state for ``layout="bucketed"``: the q_big
+    highest-count tiles keep the full slot capacity, the rest truncate to
+    k_small (binning.build_bucketed_lists); rays/pix are gathered per
+    bucket at rebin time."""
+    lists_b: torch.Tensor   # [Qb, Kb] int32
+    counts_b: torch.Tensor  # [Qb]
+    idx_b: torch.Tensor     # [Qb] tile indices (ascending)
+    rays_b: torch.Tensor    # [Qb, P, 3]
+    pix_b: torch.Tensor     # [Qb, P, 2]
+    lists_s: torch.Tensor   # [Qs, Ks]
+    counts_s: torch.Tensor  # [Qs]
+    idx_s: torch.Tensor     # [Qs]
+    rays_s: torch.Tensor    # [Qs, P, 3]
+    pix_s: torch.Tensor     # [Qs, P, 2]
+    plan: RanksumPlan | None = None   # over the concatenated bucket slots
 
 
 class _StaticArgs(NamedTuple):
@@ -59,6 +110,7 @@ class _StaticArgs(NamedTuple):
     width: int
     with_median: bool
     with_dist: bool
+    fused: bool
 
 
 def _check_params(params) -> None:
@@ -70,15 +122,57 @@ def _check_params(params) -> None:
     if params.scatter not in SCATTER_MODES:
         raise ValueError(f"unknown scatter mode {params.scatter!r}; the "
                          f"port has {SCATTER_MODES}")
+    if params.layout == "flat":
+        raise NotImplementedError(
+            "layout='flat' is not ported yet (ROADMAP.md, queue 1: the flat "
+            "layout, kernels K7-K9)")
+    if params.layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {params.layout!r}; the port has "
+                         f"{LAYOUTS}")
+    if params.layout == "bucketed" and params.bucket_k_small % params.chunk:
+        raise ValueError("bucket_k_small must be a chunk multiple")
+
+
+def _bucketed_tiles(packed, rays_all, pix_all, n_surfels: int, params):
+    height, width = params.height, params.width
+    n_tiles = (height // params.tile_h) * (width // params.tile_w)
+    q_big = min(n_tiles - 1, max(1, int(n_tiles * params.bucket_frac)))
+    k_small = params.bucket_k_small or params.chunk
+    lb, cb, ib, ls, cs, is_ = binning.build_bucketed_lists(
+        packed, height, width, params.tile_h, params.tile_w,
+        params.tile_list_capacity, k_small, q_big, params.cap_ty,
+        params.cap_tx)
+    plan = None
+    if params.scatter == "ranksum":
+        flat = torch.cat([lb.reshape(-1), ls.reshape(-1)])
+        plan = RanksumPlan(*binning.build_ranksum_plan(
+            flat, n_surfels, group=RS_GROUP, gps=RS_GPS,
+            trunc_frac=RS_TRUNC))
+    ib_l, is_l = ib.long(), is_.long()
+    return BucketedTiles(lists_b=lb, counts_b=cb, idx_b=ib,
+                         rays_b=rays_all[ib_l], pix_b=pix_all[ib_l],
+                         lists_s=ls, counts_s=cs, idx_s=is_,
+                         rays_s=rays_all[is_l], pix_s=pix_all[is_l],
+                         plan=plan)
+
+
+def scatter_plan(lists, n_surfels: int) -> ScatterPlan:
+    """The occurrence plan of ``scatter="plan"`` over tile lists [T, K],
+    with the JAX package's overflow cap of a sixth of the slots."""
+    ov_cap = max(OV_CHUNK, lists.numel() // 6 // OV_CHUNK * OV_CHUNK)
+    return ScatterPlan(*binning.build_scatter_plan(lists, n_surfels,
+                                                   m=PLAN_M, ov_cap=ov_cap))
 
 
 def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K, params,
-                  margin_px: float = 0.0) -> TileAssignment:
+                  margin_px: float = 0.0):
     """Binning only (no gradients): depth sort + tile lists + rays, plus
-    the ranksum plan when ``params.scatter == "ranksum"``."""
+    the reduction's plan (``scatter`` "ranksum" or "plan").  Returns a
+    TileAssignment, or BucketedTiles under ``layout="bucketed"``."""
     _check_params(params)
     height, width = params.height, params.width
     tile_h, tile_w = params.tile_h, params.tile_w
+    n_surfels = xyz.shape[0]
     with torch.no_grad():
         packed = common.pack_surfels(xyz, scaling, rotation, opacity,
                                      T_cw, K)
@@ -89,6 +183,9 @@ def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K, params,
                                            packed.extent_px + margin_px, 0.0)
         rays_all, pix_all = binning.tile_rays(K, height, width, tile_h,
                                               tile_w)
+        if params.layout == "bucketed":
+            return _bucketed_tiles(packed, rays_all, pix_all, n_surfels,
+                                   params)
         if params.binner == "sorted":
             lists, counts, _ = binning.build_tile_lists_sorted(
                 packed, height, width, tile_h, tile_w,
@@ -100,9 +197,12 @@ def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K, params,
         else:
             raise ValueError(f"unknown binner {params.binner!r}")
         plan = None
-        if params.scatter == "ranksum":
+        if params.scatter == "plan":
+            plan = scatter_plan(lists, n_surfels)
+        elif params.scatter == "ranksum":
             plan = RanksumPlan(*binning.build_ranksum_plan(
-                lists, xyz.shape[0], group=RS_GROUP, gps=RS_GPS))
+                lists, n_surfels, group=RS_GROUP, gps=RS_GPS,
+                trunc_frac=RS_TRUNC))
     return TileAssignment(lists=lists, counts=counts, rays_t=rays_all,
                           pix_t=pix_all, plan=plan)
 
@@ -115,31 +215,64 @@ def _forward_tiled(F, lists, counts, rays_t, pix_t, static: _StaticArgs):
                               with_dist=static.with_dist)
 
 
+def _overflow_rows(rows1, slots, ids, n_ov, n_plus1: int):
+    """K6 over the overflow entries: dF[ids[e]] += rows1[slots[e]] for
+    e < n_ov, the entry count read on the device."""
+    return kernels.scatter_overflow(rows1[slots.long()], ids, n_ov, n_plus1)
+
+
 def _reduce_rows_with_ranksum(rows_all, plan: RanksumPlan, n_plus1: int):
     """rows_all [R, 16] per-slot gradient rows -> dF [N+1, 16] through the
     id-sorted rank plan: K3 sums into a dense rank accumulator, then each
-    id reads its rank row (absent ids read the zero dummy row)."""
+    id reads its rank row (absent ids read the zero dummy row); a
+    truncated plan adds its spilled real entries through K6."""
     r_alloc = binning._ranksum_alloc(n_plus1, RS_GROUP)
     dFc = kernels.ranksum_rows(rows_all, plan.pos, plan.ranks, r_alloc)
-    return dFc[plan.rank_of_id.long()]
+    dF = dFc[plan.rank_of_id.long()]
+    if plan.ov_slots is None:
+        return dF
+    # pad to the overflow chunk: slot 0 into the discarded dummy row
+    ov_pad = (-plan.ov_slots.shape[0]) % OV_CHUNK
+    ov_slots = torch.nn.functional.pad(plan.ov_slots, (0, ov_pad), value=0)
+    ov_ids = torch.nn.functional.pad(plan.ov_ids, (0, ov_pad),
+                                     value=n_plus1 - 1)
+    return dF + _overflow_rows(rows_all, ov_slots, ov_ids, plan.n_ov,
+                               n_plus1)
+
+
+def _scatter_with_plan(rows_all, plan: ScatterPlan, n_plus1: int):
+    """rows_all [T*K, 16] -> dF [N+1, 16] through the occurrence tables:
+    one [N+1, M]-row gather summed over M (pad slot T*K reads an appended
+    zero row), plus K6 over the occurrences beyond M."""
+    m = plan.occ.shape[1]
+    rows1 = torch.cat([rows_all, rows_all.new_zeros((1, 16))])
+    dF = rows1[plan.occ.reshape(-1).long()].reshape(n_plus1, m, 16).sum(1)
+    return dF + _overflow_rows(rows1, plan.ov_slots, plan.ov_ids,
+                               plan.n_ov, n_plus1)
 
 
 def _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, outs, g,
-                    static: _StaticArgs, plan: RanksumPlan | None):
-    """-> dF [N+1, 16]: K2's per-slot rows, reduced by K3 (with a plan)
-    or K4."""
-    dFg = kernels.raster_bwd(F, lists, counts, rays_t, pix_t, tbound, outs,
-                             g, chunk=static.chunk, width=static.width,
-                             with_dist=static.with_dist)
+                    static: _StaticArgs, plan):
+    """-> dF [N+1, 16]: K5 under ``fused``; else K2's per-slot rows,
+    reduced by the plan (K3 (+ K6) or gather-sum + K6) or by K4."""
     n_plus1 = F.shape[0]
-    if plan is not None:
+    kw = dict(chunk=static.chunk, width=static.width,
+              with_dist=static.with_dist)
+    if static.fused:
+        return kernels.raster_bwd_fused(F, lists, counts, rays_t, pix_t,
+                                        tbound, outs, g, n_plus1, **kw)
+    dFg = kernels.raster_bwd(F, lists, counts, rays_t, pix_t, tbound, outs,
+                             g, **kw)
+    if isinstance(plan, RanksumPlan):
         return _reduce_rows_with_ranksum(dFg.reshape(-1, 16), plan, n_plus1)
+    if isinstance(plan, ScatterPlan):
+        return _scatter_with_plan(dFg.reshape(-1, 16), plan, n_plus1)
     return kernels.scatter_rows(dFg, lists, counts, n_plus1)
 
 
 class _RasterCore(torch.autograd.Function):
-    """out [T, P, 8] = K1(F); its backward is K2 then K3 or K4.  Only F
-    receives a gradient."""
+    """out [T, P, 8] = K1(F); its backward is K5, or K2 then the plan's
+    reduction or K4.  Only F receives a gradient."""
 
     @staticmethod
     def forward(ctx, F, lists, counts, rays_t, pix_t, static, plan):
@@ -158,10 +291,54 @@ class _RasterCore(torch.autograd.Function):
         return dF, None, None, None, None, None, None
 
 
+class _RasterCoreBucketed(torch.autograd.Function):
+    """out [T, P, 8]: K1 per bucket, scattered back into tile order.  Its
+    backward is K2 per bucket then K3 (+ K6) over the concatenated rows
+    with a ranksum plan, else K5 per bucket with the two pools summed."""
+
+    @staticmethod
+    def forward(ctx, F, bt: BucketedTiles, static):
+        out_b, tb_b = _forward_tiled(F, bt.lists_b, bt.counts_b, bt.rays_b,
+                                     bt.pix_b, static)
+        out_s, tb_s = _forward_tiled(F, bt.lists_s, bt.counts_s, bt.rays_s,
+                                     bt.pix_s, static)
+        n_tiles = bt.lists_b.shape[0] + bt.lists_s.shape[0]
+        out = out_b.new_zeros((n_tiles, *out_b.shape[1:]))
+        out[bt.idx_b.long()] = out_b
+        out[bt.idx_s.long()] = out_s
+        ctx.save_for_backward(F, tb_b, out_b, tb_s, out_s)
+        ctx.bt = bt
+        ctx.static = static
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        F, tb_b, out_b, tb_s, out_s = ctx.saved_tensors
+        bt, static = ctx.bt, ctx.static
+        n_plus1 = F.shape[0]
+        kw = dict(chunk=static.chunk, width=static.width,
+                  with_dist=static.with_dist)
+        buckets = [
+            (bt.lists_b, bt.counts_b, bt.rays_b, bt.pix_b, tb_b, out_b,
+             g[bt.idx_b.long()].contiguous()),
+            (bt.lists_s, bt.counts_s, bt.rays_s, bt.pix_s, tb_s, out_s,
+             g[bt.idx_s.long()].contiguous())]
+        if bt.plan is not None:
+            rows = torch.cat([kernels.raster_bwd(F, *b, **kw).reshape(-1, 16)
+                              for b in buckets])
+            dF = _reduce_rows_with_ranksum(rows, bt.plan, n_plus1)
+        else:
+            dF_b, dF_s = (kernels.raster_bwd_fused(F, *b, n_plus1, **kw)
+                          for b in buckets)
+            dF = dF_b + dF_s
+        return dF, None, None
+
+
 def rasterize_cuda(xyz, scaling, rotation, opacity, T_cw, K, params,
-                   tiles: TileAssignment | None = None) -> dict:
-    """Channel dict matching eager_ref.rasterize_eager, through the tiled
-    kernel path (``tiles`` reuses a frozen binning)."""
+                   tiles: TileAssignment | BucketedTiles | None = None
+                   ) -> dict:
+    """Channel dict matching eager_ref.rasterize_eager, through the kernel
+    path (``tiles`` reuses a frozen binning)."""
     _check_params(params)
     height, width = params.height, params.width
     tile_h, tile_w = params.tile_h, params.tile_w
@@ -172,9 +349,13 @@ def rasterize_cuda(xyz, scaling, rotation, opacity, T_cw, K, params,
     F = binning.pack_features(packed)
     static = _StaticArgs(chunk=params.chunk, width=width,
                          with_median=params.with_median,
-                         with_dist=params.with_dist)
-    out = _RasterCore.apply(F, tiles.lists, tiles.counts, tiles.rays_t,
-                            tiles.pix_t, static, tiles.plan)
+                         with_dist=params.with_dist,
+                         fused=params.scatter == "fused")
+    if isinstance(tiles, BucketedTiles):
+        out = _RasterCoreBucketed.apply(F, tiles, static)
+    else:
+        out = _RasterCore.apply(F, tiles.lists, tiles.counts, tiles.rays_t,
+                                tiles.pix_t, static, tiles.plan)
     chans = binning.untile_px(out, height, width, tile_h, tile_w)
     return {
         "depth_sum": chans[0],

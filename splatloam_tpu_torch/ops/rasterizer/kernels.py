@@ -1,10 +1,13 @@
-"""The rasterizer's four hand-written CUDA kernels, their wrappers and their
+"""The rasterizer's hand-written CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
-  K1 raster_fwd    <- splatloam_tpu/ops/rasterizer/pallas_raster.py:_fwd_kernel
-  K2 raster_bwd    <- pallas_raster.py:_bwd_kernel (fused=False)
-  K3 ranksum_rows  <- pallas_raster.py:_ranksum_kernel
-  K4 scatter_rows  <- pallas_raster.py:_scatter_rows_kernel
+  K1 raster_fwd        <- splatloam_tpu/ops/rasterizer/pallas_raster.py:
+                          _fwd_kernel
+  K2 raster_bwd        <- pallas_raster.py:_bwd_kernel (fused=False)
+  K3 ranksum_rows      <- pallas_raster.py:_ranksum_kernel
+  K4 scatter_rows      <- pallas_raster.py:_scatter_rows_kernel
+  K5 raster_bwd_fused  <- pallas_raster.py:_bwd_kernel (fused=True)
+  K6 scatter_overflow  <- pallas_raster.py:_scatter_overflow_kernel
 
 Each wrapper takes the plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel (built at first use from
@@ -17,7 +20,7 @@ row), lists [T, K] int32 slot ids, counts [T] int32, rays [T, P, 3],
 pix [T, P, 2], out [T, P, 8] = (depth_sum, alpha, normal_sum[3], median,
 dist, final_T), tbound [T, P, K/chunk] chunk-start transmittance (0 for
 chunks the forward skipped), g [T, P, 8] output cotangents, dFg [T, K, 16]
-per-slot feature gradients.
+per-slot feature gradients, dF [N+1, 16] per-surfel feature gradients.
 """
 from __future__ import annotations
 
@@ -80,6 +83,13 @@ KERNELS = {
     "K4_scatter_rows": Kernel(
         "K4_scatter_rows", "scatter_rows.cu", "launch_scatter_rows",
         (_P,) * 4 + (_I, _I, _P), f"{_TPU}:478"),
+    "K5_bwd_fused": Kernel(
+        "K5_bwd_fused", "raster_bwd_fused.cu", "launch_raster_bwd_fused",
+        (_P,) * 9 + (_I,) * 4 + (_F, _F) + (_I, _P),
+        f"{_TPU}:267"),
+    "K6_scatter_overflow": Kernel(
+        "K6_scatter_overflow", "scatter_overflow.cu",
+        "launch_scatter_overflow", (_P,) * 4 + (_I, _P), f"{_TPU}:605"),
 }
 
 
@@ -419,6 +429,24 @@ def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
     return dFg
 
 
+def _launch_bwd(name, dst, F, lists, counts, rays, pix, tbound, outs, g,
+                chunk: int, width: int, with_dist: bool):
+    """Check K2's / K5's inputs and launch ``name`` writing into ``dst``."""
+    n_tiles, k_cap, p_tile = _check_tiles(F, lists, counts, rays, pix,
+                                          chunk)
+    dev = F.device
+    _check("tbound", tbound, torch.float32,
+           (n_tiles, p_tile, k_cap // chunk), dev)
+    _check("outs", outs, torch.float32, (n_tiles, p_tile, 8), dev)
+    _check("g", g, torch.float32, (n_tiles, p_tile, 8), dev)
+    _launch(name, F.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+            rays.data_ptr(), pix.data_ptr(), tbound.data_ptr(),
+            outs.data_ptr(), g.data_ptr(), dst.data_ptr(), n_tiles, k_cap,
+            chunk, p_tile, float(width), 1.0 / width, int(with_dist),
+            _stream(F))
+    return dst
+
+
 def raster_bwd(F, lists, counts, rays, pix, tbound, outs, g, *,
                chunk: int, width: int, with_dist: bool):
     """K2: dFg [T, K, 16] per-slot feature gradients (the median channel
@@ -427,20 +455,10 @@ def raster_bwd(F, lists, counts, rays, pix, tbound, outs, g, *,
         return raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs,
                                 g, chunk=chunk, width=width,
                                 with_dist=with_dist)
-    n_tiles, k_cap, p_tile = _check_tiles(F, lists, counts, rays, pix,
-                                          chunk)
-    dev = F.device
-    _check("tbound", tbound, torch.float32,
-           (n_tiles, p_tile, k_cap // chunk), dev)
-    _check("outs", outs, torch.float32, (n_tiles, p_tile, 8), dev)
-    _check("g", g, torch.float32, (n_tiles, p_tile, 8), dev)
-    dFg = torch.empty((n_tiles, k_cap, 16), dtype=torch.float32, device=dev)
-    _launch("K2_bwd", F.data_ptr(), lists.data_ptr(), counts.data_ptr(),
-            rays.data_ptr(), pix.data_ptr(), tbound.data_ptr(),
-            outs.data_ptr(), g.data_ptr(), dFg.data_ptr(), n_tiles, k_cap,
-            chunk, p_tile, float(width), 1.0 / width, int(with_dist),
-            _stream(F))
-    return dFg
+    dFg = torch.empty((*lists.shape, 16), dtype=torch.float32,
+                      device=F.device)
+    return _launch_bwd("K2_bwd", dFg, F, lists, counts, rays, pix, tbound,
+                       outs, g, chunk, width, with_dist)
 
 
 # ---------------------------------------------------------------------------
@@ -496,4 +514,60 @@ def scatter_rows(dFg, lists, counts, n_rows: int):
     dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
     _launch("K4_scatter_rows", dFg.data_ptr(), lists.data_ptr(),
             counts.data_ptr(), dF.data_ptr(), n_tiles, k_cap, _stream(dFg))
+    return dF
+
+
+# ---------------------------------------------------------------------------
+# K5: backward fused with the scatter-add reduction
+# ---------------------------------------------------------------------------
+
+def raster_bwd_fused_plain(F, lists, counts, rays, pix, tbound, outs, g,
+                           n_rows: int, *, chunk: int, width: int,
+                           with_dist: bool):
+    """Plain version of K5: K2's plain rows reduced by K4's plain
+    version."""
+    dFg = raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g,
+                           chunk=chunk, width=width, with_dist=with_dist)
+    return scatter_rows_plain(dFg, lists, counts, n_rows)
+
+
+def raster_bwd_fused(F, lists, counts, rays, pix, tbound, outs, g,
+                     n_rows: int, *, chunk: int, width: int,
+                     with_dist: bool):
+    """K5: dF [n_rows, 16] per-surfel feature gradients, K2's rows added
+    into the pool by surfel id inside the kernel (dFg is never stored)."""
+    if not _on_cuda(F):
+        return raster_bwd_fused_plain(F, lists, counts, rays, pix, tbound,
+                                      outs, g, n_rows, chunk=chunk,
+                                      width=width, with_dist=with_dist)
+    dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=F.device)
+    return _launch_bwd("K5_bwd_fused", dF, F, lists, counts, rays, pix,
+                       tbound, outs, g, chunk, width, with_dist)
+
+
+# ---------------------------------------------------------------------------
+# K6: count-aware scatter-add of overflow rows
+# ---------------------------------------------------------------------------
+
+def scatter_overflow_plain(rows, ids, n_ov, n_rows: int):
+    """Plain version of K6: dF[ids[e]] += rows[e] for e < n_ov."""
+    n = int(n_ov)
+    dF = rows.new_zeros((n_rows, 16))
+    return dF.index_add_(0, ids[:n].long(), rows[:n])
+
+
+def scatter_overflow(rows, ids, n_ov, n_rows: int):
+    """K6: rows [R, 16], ids [R] int32, n_ov [] int32 live entry count (a
+    device scalar, read by the kernel, never by the host) -> dF
+    [n_rows, 16]."""
+    if not _on_cuda(rows):
+        return scatter_overflow_plain(rows, ids, n_ov, n_rows)
+    dev = rows.device
+    n_entries = rows.shape[0]
+    _check("rows", rows, torch.float32, (n_entries, 16), dev)
+    _check("ids", ids, torch.int32, (n_entries,), dev)
+    _check("n_ov", n_ov, torch.int32, (), dev)
+    dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
+    _launch("K6_scatter_overflow", rows.data_ptr(), ids.data_ptr(),
+            n_ov.data_ptr(), dF.data_ptr(), n_entries, _stream(rows))
     return dF

@@ -4,7 +4,9 @@
 The JAX mapper renders with its golden jnp backend; the port with its
 tiled path ("cuda", each kernel's plain version on the CPU) and the
 ranksum reduction, so every comparison also holds the port's kernels
-against the reference renderer.  Both packages get the same random draws:
+against the reference renderer; the optimize loop also runs under the
+other three reductions (rmw, fused, plan).  Both packages get the same
+random draws:
 the Gumbel noise and the keyframe indices are drawn with jax.random and
 handed to the port.
 """
@@ -51,13 +53,16 @@ BASE = {
 }
 
 
-def _cfgs(**mapping):
-    def build(mod, backend):
+def _cfgs(scatter="ranksum", **mapping):
+    """(JAX config on the jnp backend, port config on the cuda backend
+    with the gradient reduction ``scatter``)."""
+    def build(mod, backend, compute):
         d = {k: dict(v) for k, v in BASE.items()}
-        d["compute"]["backend"] = backend
+        d["compute"].update(backend=backend, **compute)
         d["mapping"].update(mapping)
         return mod.from_dict(mod.Configuration, d)
-    return build(jconfig, "jnp"), build(pconfig, "cuda")
+    return (build(jconfig, "jnp", {}),
+            build(pconfig, "cuda", {"scatter": scatter}))
 
 
 def test_port_imports_no_jax():
@@ -220,30 +225,44 @@ def _lrs(cfg):
 EMA_RTOL = 1e-3
 
 
-def test_run_block_loop_same_keyframes(frames):
+@pytest.fixture(scope="module")
+def block_loop_ref(frames):
+    """The JAX optimize loop over both keyframes, with its start pool and
+    per-block keyframe indices; the same reference for every reduction."""
     jcfg, pcfg = _cfgs()
     jsurf, jadam = _densified(jcfg, frames[0][0], jax.random.PRNGKey(5))
     jprogs = jmapper.MapperPrograms(jcfg, H, W, CAP)
-    pprogs = mapper.MapperPrograms(pcfg, H, W, CAP)
-    jlm, plm = JLocalModel(jcfg), LocalModel(pcfg, device="cpu")
-    for jfr, pfr in frames:
+    jlm = JLocalModel(jcfg)
+    for jfr, _ in frames:
         jlm.insert_keyframe(jfr)
-        plm.insert_keyframe(pfr)
     probs = mapper.sample_geometric_probs(2, 0.4, 8)
     log_probs = np.full((8,), -np.inf, np.float32)
     log_probs[:2] = np.log(probs[:2])
     jkf = jmapper.KeyframeBatch(**jlm.kf_stack,
                                 log_probs=jnp.asarray(log_probs))
-    pkf = mapper.KeyframeBatch(**plm.kf_stack, probs=probs)
-
-    n_blocks = pprogs.n_blocks()
+    n_blocks = mapper.MapperPrograms(pcfg, H, W, CAP).n_blocks()
     for seed in range(100):             # a key that draws both keyframes
         key = jax.random.PRNGKey(seed)
         idx = [int(jax.random.categorical(k, jnp.asarray(log_probs)))
                for k in jax.random.split(key, n_blocks)]
         if len(set(idx)) == 2:
             break
-    js, ja, jema, jn = jprogs._optimize(jsurf, jadam, jkf, key)
+    return (jsurf, jadam, probs, idx,
+            jprogs._optimize(jsurf, jadam, jkf, key))
+
+
+@pytest.mark.parametrize("scatter", ["ranksum", "rmw", "fused", "plan"])
+def test_run_block_loop_same_keyframes(frames, block_loop_ref, scatter):
+    """The optimize loop under each of the port's gradient reductions
+    against the same JAX reference."""
+    _, pcfg = _cfgs(scatter)
+    jsurf, jadam, probs, idx, (js, ja, jema, jn) = block_loop_ref
+    pprogs = mapper.MapperPrograms(pcfg, H, W, CAP)
+    assert pprogs.params.scatter == scatter
+    plm = LocalModel(pcfg, device="cpu")
+    for _, pfr in frames:
+        plm.insert_keyframe(pfr)
+    pkf = mapper.KeyframeBatch(**plm.kf_stack, probs=probs)
     psurf, padam = _port_pool(jsurf, jadam)
     ps, pa, pema, pn = pprogs.optimize(psurf, padam, pkf, torch.tensor(idx))
     assert pn == int(jn) == 8

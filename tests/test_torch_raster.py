@@ -199,7 +199,12 @@ def test_eager_vs_jnp(rng):
 def test_unknown_options_raise(rng):
     scene = [torch.tensor(a) for a in _scene(rng, n=20)]
     with pytest.raises(ValueError, match="scatter"):
-        rasterize(*scene, RenderParams(backend="cuda", scatter="fused",
+        rasterize(*scene, RenderParams(backend="cuda", scatter="bogus",
+                                       **GEO))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rasterize(*scene, RenderParams(backend="cuda", layout="flat", **GEO))
+    with pytest.raises(ValueError, match="layout"):
+        rasterize(*scene, RenderParams(backend="cuda", layout="bogus",
                                        **GEO))
     with pytest.raises(ValueError, match="backend"):
         rasterize(*scene, RenderParams(backend="pallas", **GEO))
