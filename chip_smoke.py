@@ -8,25 +8,33 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
 
   1. holds each kernel (K1 forward, K2 backward, K3 ranksum reduction,
      K4 scatter-add reduction, K5 backward fused with the scatter-add, K6
-     overflow scatter-add) against its plain PyTorch version on the card,
-     at the mapper's full-width shapes (64x1024 image, 4x16 tiles, chunk
-     256, 768 slots per tile, 100k surfels) and K1/K2 also at the
-     small-pool geometry (8x32 tiles, chunk 256, 1024 slots), and times
-     kernel, plain version and, for the reductions, one torch.index_add_;
-     K5 is also held against K2 + K4, and K6 runs under the full-width
-     occurrence plan (its uncapped overflow count printed beside the cap)
-     and under a truncated ranksum plan, each held against K4;
+     overflow scatter-add, K7/K8/K9 forward, backward and scatter-add of
+     the flat slot layout, K10 the scatter-add with 8 tiles per block)
+     against its plain PyTorch version on the card, at the mapper's
+     full-width shapes (64x1024 image, 4x16 tiles, chunk 256, 768 slots
+     per tile, 100k surfels) and K1/K2 also at the small-pool geometry
+     (8x32 tiles, chunk 256, 1024 slots), and times kernel, plain version
+     and, for the reductions, one torch.index_add_; K5 is also held
+     against K2 + K4, K6 runs under the full-width occurrence plan (its
+     uncapped overflow count printed beside the cap) and under a
+     truncated ranksum plan, each held against K4; K7 is held against K1
+     and K8 + K9 against K2 + K4 under a flat budget that drops nothing,
+     K10 against K4; the default flat budget's drops are printed;
   2. holds ``render`` on the cuda backend against the eager golden
-     renderer (values and gradients) on a reduced scene, and the
-     gradients of scatter "fused" and "plan" and of layout "bucketed"
-     against that render and the eager renderer;
+     renderer (values and gradients) on a reduced scene, the gradients of
+     scatter "fused" and "plan" and of layouts "bucketed" and "flat"
+     (values too) against that render and the eager renderer, and
+     ``render_batch`` over 3 views (tiled under each scatter mode, and
+     flat) against three single-view renders;
   3. runs the slice: a synthetic 64x1024 sweep through the device
      preprocessing, a ~100k-surfel pool, and ``Mapper.update_model`` with
      the configs/kitti/kitti.yaml settings on two keyframes (ranksum
      reduction), then one more update each with ``scatter`` "rmw",
-     "fused" and "plan"; it checks each kernel's launch count and the
-     rendered depth of the result, and compares the four reductions on
-     one pool.
+     "fused" and "plan" and one with ``views_per_iteration`` 3; it checks
+     each kernel's launch count and the rendered depth of the result,
+     compares the four reductions on one pool, and times one optimize
+     iteration's forward + backward under the tiled and the flat layout
+     (one view and 3 views) and under scatter_tps 1 and 8.
 
 It imports nothing of JAX.  It prints one line per kernel check, the
 kernels' JSON line, the card's name and power limit, and last
@@ -261,6 +269,133 @@ def check_kernels(dev, rng) -> dict:
         results.update(check_fused_and_overflow(
             dev, kernels, binning, cuda_raster, tiles, bargs, bkw, dFg, dF4,
             n_rows, float(slots.sum()), n_touched, pairs, RS_GROUP * RS_GPS))
+        results.update(check_flat_and_tps(
+            kernels, cuda_raster, scene, params, tiles, F, (out, tb), g, dFg,
+            dF4, pairs, results["K4_scatter_rows"]))
+    return results
+
+
+def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
+                       dFg, dF4, pairs, k4) -> dict:
+    """Phase 1, K7-K10 at the main path's shapes, on check_kernels' scene,
+    K1 output ``fwd``, cotangents ``g``, K2 rows ``dFg`` and K4 result
+    ``dF4``: K7, K8 and K9 over the flat layout under a budget that drops
+    nothing (T*K, so unused budget chunks trail the last tile), each
+    against its plain version, K7 against K1 and K8 + K9 against K2 + K4;
+    K10 at 8 tiles per block against K4.  Prints the default flat
+    budget's drops at this width."""
+    results = {}
+    out1 = fwd[0]
+    n_tiles, k_cap = tiles.lists.shape
+    p_tile = tiles.rays_t.shape[1]
+    chunk = params.chunk
+    n_rows = F.shape[0]
+    # sums of the same rows in another order (atomics: run-dependent)
+    tol_sum = 1e-5 * max(1.0, float(dF4.abs().max()))
+
+    n_real = int(tiles.counts.sum())
+    padded = int(((tiles.counts.long() + chunk - 1) // chunk * chunk).sum())
+    default = cuda_raster.prepare_tiles(
+        *scene, params._replace(layout="flat"), margin_px=1.5)
+    print(f"[kernel] flat budget at full width: chunk-padded slots "
+          f"{padded}, default budget "
+          f"{cuda_raster._flat_capacity_for(params)}, real entries {n_real}, "
+          f"dropped {n_real - int(default.counts.sum())}", flush=True)
+
+    ft = cuda_raster.prepare_tiles(
+        *scene, params._replace(layout="flat", flat_capacity=n_tiles * k_cap),
+        margin_px=1.5)
+    if not bool((ft.counts == tiles.counts).all()):
+        fail("the T*K flat budget dropped entries")
+    ids, starts = ft.flat_ids, ft.starts[None]
+    n_owned = int(ft.starts[-1])
+    owned_bytes = n_owned * 4 + (n_owned // chunk) * p_tile * 4 \
+        + nbytes(starts)                     # ids, tbound rows, starts
+    kw = dict(chunk=chunk, width=W, with_median=False, with_dist=False)
+    args7 = (F, ids, starts, tiles.rays_t, tiles.pix_t)
+    out7, tb7 = kernels.raster_fwd_flat(*args7, **kw)
+    out7_p, tb7_p = kernels.raster_fwd_flat_plain(*args7, **kw)
+    torch.cuda.synchronize()
+    # K1's tolerance against its plain version, for the same reason
+    err7 = max(float((out7 - out7_p).abs().max()),
+               float((tb7 - tb7_p).abs().max()))
+    tol7 = 1e-5 * max(1.0, float(out7_p.abs().max()))
+    err71 = float((out7 - out1).abs().max())
+    print(f"[kernel] K7_fwd_flat[main] vs K1: max_abs_err {err71:.3e} "
+          f"(tol {tol7:.3e}); owned slots {n_owned} of budget "
+          f"{ids.numel()}", flush=True)
+    if not err71 <= tol7:
+        fail(f"K7 disagrees with K1: {err71} > {tol7}")
+    ms7 = time_ms(lambda: kernels.raster_fwd_flat(*args7, **kw))
+    pms7 = time_ms(lambda: kernels.raster_fwd_flat_plain(*args7, **kw), 3)
+    report("K7_fwd_flat[main]", err7, tol7, ms7, pms7)
+    b7, by7 = bound(nbytes(F, tiles.rays_t, tiles.pix_t, out7) + owned_bytes,
+                    pairs * FWD_OPS_PER_PAIR)
+    results["K7_fwd_flat"] = dict(max_abs_err=err7, ms=ms7, plain_ms=pms7,
+                                  bound_ms=b7, bound_by=by7, library_ms=None)
+
+    bkw = dict(chunk=chunk, width=W, with_dist=False)
+    args8 = (*args7, tb7, out7, g)
+    rows = kernels.raster_bwd_flat(*args8, **bkw)
+    rows_p = kernels.raster_bwd_flat_plain(*args8, **bkw)
+    torch.cuda.synchronize()
+    # K2's tolerance against its plain version, for the same reason
+    err8 = float((rows - rows_p).abs().max())
+    tol8 = 2e-3 * float(rows_p.abs().max())
+    ms8 = time_ms(lambda: kernels.raster_bwd_flat(*args8, **bkw))
+    pms8 = time_ms(lambda: kernels.raster_bwd_flat_plain(*args8, **bkw), 3)
+    report("K8_bwd_flat[main]", err8, tol8, ms8, pms8)
+    b8, by8 = bound(nbytes(F, tiles.rays_t, tiles.pix_t, out7, g)
+                    + owned_bytes + n_owned * 64, pairs * BWD_OPS_PER_PAIR)
+    results["K8_bwd_flat"] = dict(max_abs_err=err8, ms=ms8, plain_ms=pms8,
+                                  bound_ms=b8, bound_by=by8, library_ms=None)
+
+    dF9 = kernels.scatter_rows_flat(rows, ids, n_rows)
+    dF9_p = kernels.scatter_rows_flat_plain(rows, ids, n_rows)
+    torch.cuda.synchronize()
+    err9 = float((dF9 - dF9_p).abs().max())
+    tol9 = 1e-5 * max(1.0, float(dF9_p.abs().max()))
+    err94 = float((dF9 - dF4)[:-1].abs().max())
+    print(f"[kernel] K8 + K9 vs K2 + K4 kernels: max_abs_err {err94:.3e} "
+          f"(tol {tol_sum:.3e})", flush=True)
+    if not err94 <= tol_sum:
+        fail(f"K8 + K9 disagree with K2 + K4: {err94} > {tol_sum}")
+    ids_l = ids.long()
+    ms9 = time_ms(lambda: kernels.scatter_rows_flat(rows, ids, n_rows))
+    pms9 = time_ms(lambda: kernels.scatter_rows_flat_plain(rows, ids, n_rows))
+    lib9 = time_ms(lambda: rows.new_zeros((n_rows, 16)).index_add_(
+        0, ids_l, rows))
+    report("K9_scatter_rows_flat[main]", err9, tol9, ms9, pms9, lib9)
+    n_touched = int(torch.unique(ids_l[:n_owned]).numel())
+    b9, by9 = bound(n_owned * (64 + 4) + n_touched * 64, n_owned * 16)
+    results["K9_scatter_rows_flat"] = dict(
+        max_abs_err=err9, ms=ms9, plain_ms=pms9, bound_ms=b9, bound_by=by9,
+        library_ms=lib9)
+
+    tps = 8
+    args10 = (dFg, tiles.lists, tiles.counts, n_rows)
+    dF10 = kernels.scatter_rows_tps(*args10, tps)
+    dF10_p = kernels.scatter_rows_plain(*args10)
+    torch.cuda.synchronize()
+    err10 = float((dF10 - dF10_p).abs().max())
+    err104 = float((dF10 - dF4).abs().max())
+    print(f"[kernel] K10 (tps {tps}) vs K4 kernel: max_abs_err {err104:.3e} "
+          f"(tol {tol_sum:.3e})", flush=True)
+    if not err104 <= tol_sum:
+        fail(f"K10 disagrees with K4: {err104} > {tol_sum}")
+    real = (torch.arange(k_cap, device=dFg.device)[None, :]
+            < tiles.counts[:, None])
+    ids_real = tiles.lists[real].long()
+    rows_real = dFg[real]
+    ms10 = time_ms(lambda: kernels.scatter_rows_tps(*args10, tps))
+    pms10 = time_ms(lambda: kernels.scatter_rows_plain(*args10))
+    lib10 = time_ms(lambda: dFg.new_zeros((n_rows, 16)).index_add_(
+        0, ids_real, rows_real))
+    report(f"K10_scatter_rows_tps[main, tps {tps}]", err10, tol_sum, ms10,
+           pms10, lib10)
+    results["K10_scatter_rows_tps"] = dict(
+        max_abs_err=err10, ms=ms10, plain_ms=pms10, bound_ms=k4["bound_ms"],
+        bound_by=k4["bound_by"], library_ms=lib10)
     return results
 
 
@@ -399,18 +534,22 @@ def check_render_parity(dev, rng) -> None:
         if not err <= tol:
             fail(f"render gradient {name} disagrees with the eager renderer")
 
-    # the other reductions and the bucketed layout against the tiled
-    # ranksum render (the same sums in another order: 1e-5 * max(1, max|g|))
-    # and the eager renderer; the bucketed runs keep the small bucket at one
-    # chunk (K/C = 1) for the quarter of the tiles with the fewest surfels
+    # the other reductions and the bucketed and flat layouts against the
+    # tiled ranksum render (the same sums in another order:
+    # 1e-5 * max(1, max|g|)) and the eager renderer; the bucketed runs keep
+    # the small bucket at one chunk (K/C = 1) for the quarter of the tiles
+    # with the fewest surfels, the flat run a budget that drops nothing
     from splatloam_tpu_torch.ops.rasterizer.cuda_raster import prepare_tiles
     names = ["xyz", "scales", "quat", "opacity", "T_cw"]
+    n_tiles = (h // params.tile_h) * (w // params.tile_w)
     for label, kw in [
             ("fused", dict(scatter="fused")), ("plan", dict(scatter="plan")),
             ("bucketed-fused", dict(layout="bucketed", scatter="fused",
                                     bucket_frac=0.75)),
             ("bucketed-ranksum", dict(layout="bucketed", scatter="ranksum",
-                                      bucket_frac=0.75))]:
+                                      bucket_frac=0.75)),
+            ("flat", dict(layout="flat", flat_capacity=n_tiles
+                          * params.tile_list_capacity))]:
         p = params._replace(**kw)
         tiles = prepare_tiles(*scene, p)
         if label.startswith("bucketed") and \
@@ -418,8 +557,21 @@ def check_render_parity(dev, rng) -> None:
             fail(f"{label}: a small-bucket tile was cut, so the tiled "
                  "render is no oracle")
         leaves_v = [a.clone().requires_grad_(True) for a in scene[:5]]
-        g_v = torch.autograd.grad(
-            loss(rasterize(*leaves_v, scene[5], p, tiles=tiles)), leaves_v)
+        out_v = rasterize(*leaves_v, scene[5], p, tiles=tiles)
+        g_v = torch.autograd.grad(loss(out_v), leaves_v)
+        if label == "flat":
+            errs = []
+            for key, tol in [("alpha", 2e-5), ("depth_sum", 2e-4),
+                             ("normal_sum", 2e-4), ("dist", 3e-4),
+                             ("final_T", 2e-5)]:
+                e_t = float((out_v[key] - out[key]).detach().abs().max())
+                e_e = float((out_v[key] - ref[key]).detach().abs().max())
+                errs.append(f"{key} {e_t:.2e}/{e_e:.2e}")
+                if not (e_t <= tol and e_e <= tol):
+                    fail(f"flat render {key}: {e_t} vs the tiled render, "
+                         f"{e_e} vs eager (tol {tol})")
+            print(f"[parity] flat vs tiled render / eager: "
+                  f"{', '.join(errs)}", flush=True)
         errs = []
         for name, a, b, c, rel in zip(names, g_v, g_cuda, g_ref,
                                       [2e-3] * 4 + [3e-3]):
@@ -433,6 +585,65 @@ def check_render_parity(dev, rng) -> None:
                      f"render (tol {tol_rs}), {err_e} vs eager (tol {tol_e})")
         print(f"[parity] grad {label} vs ranksum render / eager: "
               f"{', '.join(errs)}", flush=True)
+    check_render_batch(scene, params, n_tiles)
+
+
+def check_render_batch(scene, params, n_tiles) -> None:
+    """Phase 2: render_batch over 3 poses of the reduced scene, tiled under
+    each scatter mode and flat, against three single-view renders: values
+    within the forward tolerances, gradients (summed over the views for
+    the surfels, per view for the poses) at 1e-5 * max(1, max|g|), the
+    same sums in another order."""
+    from splatloam_tpu_torch.ops.rasterizer.api import render, render_batch
+
+    xyz, sc, quat, opac, T, K = scene
+    shift = torch.tensor([[0.0, 0.0, 0.0], [0.3, -0.1, 0.02],
+                          [-0.2, 0.25, -0.03]], device=T.device)
+    T_b = T[None].repeat(3, 1, 1)
+    T_b[:, :3, 3] += shift
+    K_b = K[None].repeat(3, 1, 1)
+
+    def loss(pkg):
+        return (pkg["rend_alpha"].sum() + 0.2 * pkg["rend_dist"].sum()
+                + 0.1 * (pkg["surf_depth"] * pkg["rend_alpha"]).sum())
+
+    keys = [("rend_alpha", 2e-5), ("rend_dist", 3e-4), ("surf_depth", 2e-4),
+            ("rend_normal", 2e-4)]
+    flat = dict(layout="flat",
+                flat_capacity=n_tiles * params.tile_list_capacity)
+    for label, kw in [("rmw", dict(scatter="rmw")),
+                      ("ranksum", dict(scatter="ranksum")),
+                      ("fused", dict(scatter="fused")),
+                      ("plan", dict(scatter="plan")), ("flat", flat)]:
+        p = params._replace(**kw)
+        leaves = [a.clone().requires_grad_(True) for a in (xyz, sc, quat,
+                                                           opac, T_b)]
+        pkg = render_batch(*leaves, K_b, p)
+        g_b = torch.autograd.grad(loss(pkg), leaves)
+        leaves_s = [a.clone().requires_grad_(True) for a in (xyz, sc, quat,
+                                                             opac, T_b)]
+        tot, err_v = 0.0, 0.0
+        for v in range(3):
+            one = render(*leaves_s[:4], leaves_s[4][v], K, p)
+            tot = tot + loss(one)
+            for key, tol in keys:
+                e = float((pkg[key][v] - one[key]).detach().abs().max())
+                err_v = max(err_v, e / tol)
+        g_s = torch.autograd.grad(tot, leaves_s)
+        errs = []
+        for name, a, b in zip(["xyz", "scales", "quat", "opacity", "T_cw"],
+                              g_b, g_s):
+            tol = 1e-5 * max(1.0, float(b.abs().max()))
+            err = float((a - b).abs().max())
+            errs.append(f"{name} {err:.2e}")
+            if not err <= tol:
+                fail(f"render_batch[{label}] gradient {name}: {err} vs "
+                     f"three single-view renders (tol {tol})")
+        print(f"[parity] render_batch[{label}] B=3 vs single views: values "
+              f"{err_v:.3f} of tolerance, grads {', '.join(errs)}",
+              flush=True)
+        if not err_v <= 1.0:
+            fail(f"render_batch[{label}] values disagree with single views")
 
 
 def run_slice(dev, rng, overrides=()) -> dict:
@@ -527,17 +738,7 @@ def run_slice(dev, rng, overrides=()) -> dict:
         if not bool(torch.isfinite(p[model.surfels.active]).all()):
             fail(f"non-finite {name} after the updates")
 
-    # the optimized map reproduces the second keyframe's range image
-    pkg = mapper.render_frame(frames[1])
-    cam = frames[1].camera
-    valid = cam.valid
-    l1 = (pkg["surf_depth"] - cam.depth).abs()[valid]
-    cover = float((pkg["rend_alpha"][valid] > 0.5).float().mean())
-    med_l1 = float(l1.median())
-    print(f"[slice] keyframe 1 re-render: coverage(alpha>0.5) {cover:.4f}, "
-          f"median depth L1 {med_l1:.4f} m")
-    if not (cover > 0.9 and med_l1 < 0.25):
-        fail("the optimized map does not reproduce the keyframe")
+    check_rerender(mapper, frames[1], "slice")
 
     # the same update with each other reduction: scatter-add (the rebin-1
     # choice), fused into the backward, and the occurrence plan
@@ -573,8 +774,156 @@ def run_slice(dev, rng, overrides=()) -> dict:
             launches_plan["K6_scatter_overflow"] == 0:
         fail("the plan path must launch K2 and K6")
     launches["K6_scatter_overflow"] = launches_plan["K6_scatter_overflow"]
+    update_multiview(cfg, model, frames)
     profile_optimize(cfg, mapper, model)
     compare_reductions(cfg, mapper, model, rng)
+    launches.update(time_layouts(cfg, mapper, model))
+    return launches
+
+
+def check_rerender(mapper, frame, tag) -> None:
+    """The optimized map reproduces the keyframe's range image."""
+    pkg = mapper.render_frame(frame)
+    cam = frame.camera
+    valid = cam.valid
+    l1 = (pkg["surf_depth"] - cam.depth).abs()[valid]
+    cover = float((pkg["rend_alpha"][valid] > 0.5).float().mean())
+    med_l1 = float(l1.median())
+    print(f"[{tag}] keyframe 1 re-render: coverage(alpha>0.5) {cover:.4f}, "
+          f"median depth L1 {med_l1:.4f} m", flush=True)
+    if not (cover > 0.9 and med_l1 < 0.25):
+        fail(f"[{tag}] the optimized map does not reproduce the keyframe")
+
+
+def update_multiview(cfg, model, frames) -> None:
+    """Phase 3: one Mapper.update_model with views_per_iteration = 3 (the
+    kitti.yaml settings otherwise): K1, K2 and K3 launch, and the map still
+    reproduces the keyframe."""
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.slam.mapper import Mapper
+
+    cfg_v = copy.deepcopy(cfg)
+    cfg_v.mapping.views_per_iteration = 3
+    mapper_v = Mapper(cfg_v, device=model.device, seed=SEED)
+    mapper_v.register_model(model)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mapper_v.update_model(frames[1])
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+    ema = float(mapper_v.last_ema)
+    print(f"[multiview] views_per_iteration 3: {mapper_v.last_iters} "
+          f"iterations, keyframe update {update_ms:.1f} ms "
+          f"({update_ms / mapper_v.last_iters:.3f} ms/iteration with densify "
+          f"and prune), loss EMA {ema:.5f}, launches {counts}", flush=True)
+    for k in ("K1_fwd", "K2_bwd", "K3_ranksum"):
+        if counts[k] == 0:
+            fail(f"{k} was not launched on the multi-view update")
+    if not np.isfinite(ema):
+        fail("multi-view loss EMA not finite")
+    check_rerender(mapper_v, frames[1], "multiview")
+
+
+def time_layouts(cfg, mapper, model) -> dict:
+    """Phase 3: one optimize iteration's forward + backward (the mapper's
+    loss on frozen tiles, host clock ending in a device sync, mean of 10)
+    under the tiled and the flat layout (default budget), one view and 3
+    views; then the 3-view tiled iteration under scatter "rmw" with
+    scatter_tps 1 and 8.  Each pair runs in turns (A, B, B, A) against
+    host drift.  Returns the launches of K7-K9 (flat runs) and K10 (the
+    first tps 8 run)."""
+    from splatloam_tpu_torch.model import surfels as S
+    from splatloam_tpu_torch.ops.rasterizer import cuda_raster, kernels
+    from splatloam_tpu_torch.ops.rasterizer.api import (prepare_tiles,
+                                                        prepare_tiles_batch)
+    from splatloam_tpu_torch.slam.mapper import MapperPrograms
+
+    kf = mapper._stack_keyframes(model.kf_stack["K"].shape[0])
+    surf = model.surfels
+    sc = torch.exp(surf.params.log_scale)
+    op = torch.sigmoid(surf.params.logit_opacity) * surf.active
+    dev = model.device
+    views = {1: torch.tensor(1, device=dev),
+             3: torch.tensor([1, 0, 1], device=dev)}
+
+    def make_step(layout, b, **kw):
+        """One iteration's forward + backward on frozen tiles, warmed up."""
+        progs = MapperPrograms(cfg, H, W, model.capacity)
+        progs.params = progs.params._replace(layout=layout, **kw)
+        progs.views = b
+        idx = views[b]
+        prep = prepare_tiles if b == 1 else prepare_tiles_batch
+        tiles = prep(surf.params.xyz, sc, surf.params.quat, op, kf.T_cw[idx],
+                     kf.K[idx], progs.params,
+                     margin_px=cfg.compute.bin_margin_px)
+        loss_fn = progs._loss if b == 1 else progs._loss_multi
+
+        def step():
+            params = S.SurfelParams(*(a.detach().requires_grad_(True)
+                                      for a in surf.params))
+            return torch.autograd.grad(
+                loss_fn(params, surf.active, kf, idx, tiles), params)
+
+        step()
+        return step, tiles
+
+    def host_ms(step, reps=10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    def in_turns(a, b):
+        """(a, a) and (b, b) ms of two steps run a, b, b, a."""
+        ta, tb = [host_ms(a)], [host_ms(b)]
+        tb.append(host_ms(b))
+        ta.append(host_ms(a))
+        return ta, tb
+
+    kernels.reset_launch_counts()
+    parts = []
+    for b in (1, 3):
+        tiled_step, _ = make_step("tiled", b)
+        flat_step, tiles = make_step("flat", b)
+        t_ms, f_ms = in_turns(tiled_step, flat_step)
+        n_owned = int(tiles.starts[..., -1].sum())
+        parts.append(f"B={b}: tiled {t_ms[0]:.3f}/{t_ms[1]:.3f} ms, flat "
+                     f"{f_ms[0]:.3f}/{f_ms[1]:.3f} ms (owned slots {n_owned} "
+                     f"of budget {tiles.flat_ids.numel()}, real entries kept "
+                     f"{int(tiles.counts.sum())})")
+    counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+    base = MapperPrograms(cfg, H, W, model.capacity).params
+    print(f"[flat] forward + backward per iteration at {H}x{W} "
+          f"({base.tile_h}x{base.tile_w} tiles, chunk {base.chunk}, K "
+          f"{base.tile_list_capacity}, scatter {base.scatter} when tiled, "
+          f"default flat budget {cuda_raster._flat_capacity_for(base)} per "
+          f"view), in turns tiled, flat, flat, tiled: {'; '.join(parts)}; "
+          f"launches K7 {counts['K7_fwd_flat']}, K8 {counts['K8_bwd_flat']}, "
+          f"K9 {counts['K9_scatter_rows_flat']}", flush=True)
+    launches = {k: counts[k] for k in ("K7_fwd_flat", "K8_bwd_flat",
+                                       "K9_scatter_rows_flat")}
+    if not all(launches.values()):
+        fail(f"a flat kernel was not launched on the flat runs: {launches}")
+
+    tps8, _ = make_step("tiled", 3, scatter="rmw", scatter_tps=8)
+    tps1, _ = make_step("tiled", 3, scatter="rmw")
+    kernels.reset_launch_counts()
+    t8 = [host_ms(tps8)]
+    counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+    t1 = [host_ms(tps1), host_ms(tps1)]
+    t8.append(host_ms(tps8))
+    print(f"[tps] 3-view forward + backward, scatter rmw, in turns tps 8, 1, "
+          f"1, 8: tps 1 {t1[0]:.3f}/{t1[1]:.3f} ms, tps 8 {t8[0]:.3f}/"
+          f"{t8[1]:.3f} ms; launches on the first tps 8 run: K10 "
+          f"{counts['K10_scatter_rows_tps']}, K4 {counts['K4_scatter_rows']}",
+          flush=True)
+    if counts["K10_scatter_rows_tps"] == 0 or counts["K4_scatter_rows"]:
+        fail("scatter_tps 8 must reduce through K10 and not K4")
+    launches["K10_scatter_rows_tps"] = counts["K10_scatter_rows_tps"]
     return launches
 
 
@@ -628,8 +977,9 @@ def compare_reductions(cfg, mapper, model, rng) -> None:
         out, tb = cuda_raster._forward_tiled(*targs, static)
         g = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32),
                          device=model.device)
+        plans = None if tiles.plan is None else (tiles.plan,)
         bwd_ms = time_ms(lambda: cuda_raster._backward_tiled(
-            *targs, tb, out, g, static, tiles.plan))
+            *targs, tb, out, g, static, plans))
         k2_ms = time_ms(lambda: kernels.raster_bwd(
             *targs, tb, out, g, chunk=prm.chunk, width=W,
             with_dist=prm.with_dist))

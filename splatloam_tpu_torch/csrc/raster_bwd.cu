@@ -24,7 +24,8 @@ extern "C" int launch_raster_bwd(const float* F, const int* lists,
                                  float* dFg, int n_tiles, int K, int C,
                                  int P, float width, float inv_width,
                                  int with_dist, cudaStream_t stream) {
-  return splat::launch_raster_bwd_impl<false>(
-      F, lists, counts, rays, pix, tbound, outs, g, dFg, n_tiles, K, C, P,
-      width, inv_width, with_dist, stream);
+  const splat::SlotLayout L{lists, counts, K, 0};
+  return splat::launch_raster_bwd_impl<false, false>(
+      F, L, rays, pix, tbound, outs, g, dFg, n_tiles, C, P, width,
+      inv_width, with_dist, stream);
 }

@@ -1,32 +1,39 @@
 // The rasterizer's backward pass, shared by K2 (raster_bwd.cu: per-slot
-// gradient rows) and K5 (raster_bwd_fused.cu: the same rows accumulated
-// into the surfel pool inside the kernel).
+// gradient rows), K5 (raster_bwd_fused.cu: the same rows accumulated into
+// the surfel pool inside the kernel) and K8 (raster_bwd_flat.cu: K2 over
+// the flat compacted slot pool).
 //
 // Per tile, replay the live chunks (those the forward ran: chunk-start T
-// above 1e-4 for some pixel, within the tile's count) in reverse with O(P)
+// above 1e-4 for some pixel, within the tile's slots) in reverse with O(P)
 // suffix carries (sum of w*phi, w and w*m over later surfels), and reduce
 // each slot's gradient over the tile's pixels into one 16-value row: p, gu,
 // gv, n (3 each), opacity, centre depth, cx, cy.  The median channel is not
 // differentiated; no gradient flows where alpha is capped at 0.999.
 //
 // Design: one block per tile, one thread per pixel.  A chunk's features
-// are staged in shared memory as in K1.  Each pixel needs T_i, the
-// transmittance in front of surfel i, while walking the chunk backwards;
-// T_i is rebuilt forward from the chunk-start T saved by K1 (dividing the
-// final T by (1 - alpha) loses precision at alpha up to 0.999).  A [P, C]
-// buffer of T_i does not fit in shared memory at 256-pixel tiles, so the
-// chunk is cut into sub-chunks of 32 slots: one forward pass stores T at
-// every sub-chunk start, then each sub-chunk, last first, rebuilds its 32
-// T_i into shared memory and walks them backwards.  Every slot's 16
-// per-pixel terms are reduced over a warp with shuffles and over the
-// block's warps through shared memory.
+// are staged in shared memory as in the forward.  Each pixel needs T_i,
+// the transmittance in front of surfel i, while walking the chunk
+// backwards; T_i is rebuilt forward from the chunk-start T saved by the
+// forward (dividing the final T by (1 - alpha) loses precision at alpha up
+// to 0.999).  A [P, C] buffer of T_i does not fit in shared memory at
+// 256-pixel tiles, so the chunk is cut into sub-chunks of 32 slots: one
+// forward pass stores T at every sub-chunk start, then each sub-chunk,
+// last first, rebuilds its 32 T_i into shared memory and walks them
+// backwards.  Every slot's 16 per-pixel terms are reduced over a warp with
+// shuffles and over the block's warps through shared memory.
 //
-// FUSED = false (K2): the block owns its tile's rows of dFg [T, K, 16] and
-// stores them plainly; rows of slots the forward did not composite (dead
-// chunks, padding slots) are written as zeros, because K3 sums every slot.
+// FUSED = false, FLAT = false (K2): the block owns its tile's rows of dFg
+// [T, K, 16] and stores them plainly; rows of slots the forward did not
+// composite (dead chunks, padding slots) are written as zeros, because K3
+// sums every slot.
 // FUSED = true (K5): each composited slot's row is added with float atomics
 // into dF[lists[t, j]] of the zeroed pool dF [N+1, 16]; dead chunks and
 // padding slots add nothing, and dFg never reaches device memory.
+// FLAT = true (K8): the block owns the rows [NC*C, 16] of its tile's flat
+// chunk range and walks that range in reverse inside the block (the TPU's
+// reversed sequential grid carried the suffix sums from chunk to chunk in
+// scratch, which blocks running in no order cannot); the rows arrive
+// zeroed, so dead chunks and unowned budget chunks stay zero.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,14 +44,13 @@ namespace splat {
 
 constexpr int BWD_SUB = 32;
 
-template <bool FUSED>
+template <bool FUSED, bool FLAT>
 __global__ void raster_bwd_kernel(
-    const float* __restrict__ F, const int* __restrict__ lists,
-    const int* __restrict__ counts, const float* __restrict__ rays,
-    const float* __restrict__ pix, const float* __restrict__ tbound,
-    const float* __restrict__ outs, const float* __restrict__ gout,
-    float* __restrict__ dst, int K, int C, float width, float inv_width,
-    int with_dist) {
+    const float* __restrict__ F, SlotLayout L,
+    const float* __restrict__ rays, const float* __restrict__ pix,
+    const float* __restrict__ tbound, const float* __restrict__ outs,
+    const float* __restrict__ gout, float* __restrict__ dst, int C,
+    float width, float inv_width, int with_dist) {
   constexpr int SUB = BWD_SUB;
   extern __shared__ float smem[];
   const int t = blockIdx.x;
@@ -58,19 +64,24 @@ __global__ void raster_bwd_kernel(
   float* s_ti = s_tck + (C / SUB) * P;       // [SUB, P] T_i of one sub-chunk
   float* s_red = s_ti + SUB * P;             // [SUB, NW, 16] warp partials
 
-  const int nc = K / C;
-  const int count = counts[t];
+  const TileSlots ts = tile_slots<FLAT>(L, t, C);
+  const int count = ts.count;
   const int n_act = (count + C - 1) / C;
   const size_t px_idx = (size_t)t * P + p;
-  const float* tb = tbound + px_idx * nc;
+  // chunk i's start T: K2/K5 [T, P, K/C]; K8 [NC, P], chunk0 + i
+  const int nc = L.slots_per_view / C;
+  const float* tb =
+      FLAT ? tbound + (ts.slot0 / C) * P + p : tbound + px_idx * nc;
+  const size_t tb_step = FLAT ? (size_t)P : 1;
   int n_live = 0;
   for (int i = 0; i < n_act; ++i)
-    n_live += __syncthreads_or(tb[i] > T_EPS) ? 1 : 0;
+    n_live += __syncthreads_or(tb[i * tb_step] > T_EPS) ? 1 : 0;
 
-  // K2: this tile's rows of dFg; K5: the pool
-  float* rows = FUSED ? dst : dst + (size_t)t * K * 16;
-  if (!FUSED) {
+  // K2/K8: this tile's rows; K5: the pool
+  float* rows = FUSED ? dst : dst + ts.slot0 * 16;
+  if (!FUSED && !FLAT) {
     // rows of chunks the forward skipped, and of padding slots past count
+    const int K = L.slots_per_view;
     const int first_zero = n_live > 0 ? min(count, n_live * C) : 0;
     for (int idx = first_zero * 16 + p; idx < K * 16; idx += P)
       rows[idx] = 0.0f;
@@ -87,7 +98,7 @@ __global__ void raster_bwd_kernel(
   const float gdist = gp[6];
   const float D_total = outs[px_idx * 8 + 0];
   const float A_total = outs[px_idx * 8 + 1];
-  const int* list = lists + (size_t)t * K;
+  const int* list = ts.list;
 
   float S_c = 0.0f, W_c = 0.0f, MD_c = 0.0f;   // strict-suffix carries
   for (int i = n_live - 1; i >= 0; --i) {
@@ -96,7 +107,7 @@ __global__ void raster_bwd_kernel(
     stage_chunk(s_feat, F, list, i * C, n_c, p, P);
     __syncthreads();
 
-    float T = tb[i];
+    float T = tb[i * tb_step];
     for (int c = 0; c < n_c; ++c) {
       if (c % SUB == 0) s_tck[(c / SUB) * P + p] = T;
       const Geo g = splat_geometry(s_feat + c * FS, rx, ry, rz, pu, pv,
@@ -205,25 +216,24 @@ __global__ void raster_bwd_kernel(
 }
 
 // Launch over n_tiles blocks of P threads; returns the CUDA error code.
-template <bool FUSED>
-int launch_raster_bwd_impl(const float* F, const int* lists,
-                           const int* counts, const float* rays,
+template <bool FUSED, bool FLAT>
+int launch_raster_bwd_impl(const float* F, SlotLayout L, const float* rays,
                            const float* pix, const float* tbound,
                            const float* outs, const float* g, float* dst,
-                           int n_tiles, int K, int C, int P, float width,
+                           int n_tiles, int C, int P, float width,
                            float inv_width, int with_dist,
                            cudaStream_t stream) {
   const size_t smem = (size_t)(C * FS + (C / BWD_SUB) * P + BWD_SUB * P +
                                BWD_SUB * (P / 32) * 16) *
                       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      raster_bwd_kernel<FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      raster_bwd_kernel<FUSED, FLAT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (n_tiles == 0) return 0;
-  raster_bwd_kernel<FUSED><<<n_tiles, P, smem, stream>>>(
-      F, lists, counts, rays, pix, tbound, outs, g, dst, K, C, width,
-      inv_width, with_dist);
+  raster_bwd_kernel<FUSED, FLAT><<<n_tiles, P, smem, stream>>>(
+      F, L, rays, pix, tbound, outs, g, dst, C, width, inv_width, with_dist);
   return (int)cudaGetLastError();
 }
 

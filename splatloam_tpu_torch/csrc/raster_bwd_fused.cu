@@ -28,7 +28,8 @@ extern "C" int launch_raster_bwd_fused(const float* F, const int* lists,
                                        float* dF, int n_tiles, int K, int C,
                                        int P, float width, float inv_width,
                                        int with_dist, cudaStream_t stream) {
-  return splat::launch_raster_bwd_impl<true>(
-      F, lists, counts, rays, pix, tbound, outs, g, dF, n_tiles, K, C, P,
-      width, inv_width, with_dist, stream);
+  const splat::SlotLayout L{lists, counts, K, 0};
+  return splat::launch_raster_bwd_impl<true, false>(
+      F, L, rays, pix, tbound, outs, g, dF, n_tiles, C, P, width,
+      inv_width, with_dist, stream);
 }

@@ -42,6 +42,40 @@ __device__ __forceinline__ void stage_chunk(float* s, const float* F,
   }
 }
 
+// How a block finds its tile's slots.  Tiled layout (K1, K2, K5): ids are
+// the lists [T, K] and meta the counts [T]; slot j of tile t is
+// ids[t * K + j], j < counts[t].  Flat layout (K7, K8): ids are the views'
+// flat slot pools [B, E] (E = slots_per_view) and meta their chunk-aligned
+// segment starts [B, T_view + 1]; tile t of view v owns the whole chunks
+// [starts[v, t], starts[v, t + 1]) of its view's pool, pads included
+// (they point at a zero feature row and composite to nothing).  Budget
+// chunks past starts[v, T_view] belong to no block.
+struct SlotLayout {
+  const int* ids;
+  const int* meta;
+  int slots_per_view;   // tiled: K; flat: E
+  int tiles_per_view;   // flat only
+};
+
+struct TileSlots {
+  const int* list;   // the tile's first slot id
+  int count;         // slots to composite
+  size_t slot0;      // the tile's first slot in the layout's slot space
+};
+
+template <bool FLAT>
+__device__ __forceinline__ TileSlots tile_slots(const SlotLayout& L, int t,
+                                                int C) {
+  if (FLAT) {
+    const int v = t / L.tiles_per_view;
+    const int* st = L.meta + v * (L.tiles_per_view + 1) + t % L.tiles_per_view;
+    const size_t slot0 = (size_t)v * L.slots_per_view + st[0];
+    return {L.ids + slot0, st[1] - st[0], slot0};
+  }
+  const size_t slot0 = (size_t)t * L.slots_per_view;
+  return {L.ids + slot0, L.meta[t], slot0};
+}
+
 struct Geo {
   float A1, A2, A3, tstar, uu, vv, m, g_exp, alpha_raw, alpha, dx, dy;
   bool use2, ok;

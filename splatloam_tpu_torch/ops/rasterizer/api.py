@@ -5,9 +5,11 @@ rend_alpha / rend_normal (world frame, alpha-normalized) / rend_dist /
 surf_depth / surf_normal (from depth finite differences) plus
 radii/visibility from the raw rasterizer channels.
 
-Backends: "cuda" = the tiled kernel path (on CPU tensors its kernels run
-their plain PyTorch versions), "eager" = the golden O(N*P) renderer,
-"auto" = "cuda".  The tensors' device decides where the work runs.
+Backends: "cuda" = the kernel path (on CPU tensors its kernels run their
+plain PyTorch versions), "eager" = the golden O(N*P) renderer, "auto" =
+"cuda".  The tensors' device decides where the work runs.  ``render_batch``
+renders B views of one surfel set, on the cuda backend through one launch
+of each kernel.
 """
 from __future__ import annotations
 
@@ -38,13 +40,17 @@ class RenderParams(NamedTuple):
     cap_ty: int = 9
     cap_tx: int = 9
     # slot layout of the kernels: "tiled" = padded [T, K] per-tile lists,
+    # "flat" = one compacted chunk-aligned slot pool (K7-K9 touch ~sum of
+    # the counts slots instead of T*K; binning.build_flat_lists),
     # "bucketed" = two-capacity tile buckets (the top bucket_frac tiles by
     # count keep the full capacity, the rest truncate to bucket_k_small;
-    # 0 = one chunk).  The JAX package's "flat" layout is not ported yet
-    # and raises NotImplementedError.
+    # 0 = one chunk; single view)
     layout: str = "tiled"
     bucket_frac: float = 0.5
     bucket_k_small: int = 0
+    # flat slot budget (a chunk multiple); 0 = T*K/2.  A scene whose
+    # chunk-padded slots exceed it loses the tail tiles' deepest entries
+    flat_capacity: int = 0
     # gradient reduction of the backward's per-slot rows:
     #   "rmw"     - atomic scatter-add kernel (K4);
     #   "ranksum" - rebin-time id-sort + segmented-sum kernel (K3), plus
@@ -54,8 +60,13 @@ class RenderParams(NamedTuple):
     #               surfel's first 4 rows + the overflow scatter (K6);
     #   "fused"   - the scatter-add folded into the backward kernel (K5).
     # All are exact up to float summation order.  Under "bucketed" only
-    # "ranksum" keeps a plan; every other mode runs K5 per bucket.
+    # "ranksum" keeps a plan; every other mode runs K5 per bucket.  The
+    # flat layout has its own reduction (K9) and ignores ``scatter`` and
+    # ``scatter_tps``.
     scatter: str = "rmw"
+    # "rmw" only: tiles per CUDA block of the scatter-add (K10 when > 1;
+    # reduced to a divisor of the tile count)
+    scatter_tps: int = 1
 
 
 def adaptive_geometry(n_surfels: int) -> dict:
@@ -90,8 +101,8 @@ def rasterize(xyz, scaling, rotation, opacity, T_cw, K,
               params: RenderParams, tiles=None) -> dict:
     """Dispatch to a rasterizer backend; returns the raw channel dict.
 
-    ``tiles``: optional frozen TileAssignment or BucketedTiles (cuda
-    backend only) to amortize binning across iterations; the eager path
+    ``tiles``: optional frozen TileAssignment, FlatTiles or BucketedTiles
+    (cuda backend only) to amortize binning across iterations; the eager path
     ignores it.
     """
     if _resolve_backend(params.backend) == "eager":
@@ -104,8 +115,8 @@ def rasterize(xyz, scaling, rotation, opacity, T_cw, K,
 
 def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K,
                   params: RenderParams, margin_px: float = 0.0):
-    """Precompute a frozen TileAssignment, or BucketedTiles under
-    ``layout="bucketed"`` (None on the eager backend)."""
+    """Precompute a frozen TileAssignment, or FlatTiles / BucketedTiles
+    under ``layout="flat"`` / ``"bucketed"`` (None on the eager backend)."""
     if _resolve_backend(params.backend) != "cuda":
         return None
     from .cuda_raster import prepare_tiles as _prep
@@ -161,3 +172,37 @@ def _decode(chans, T_cw, K, depth_ratio) -> dict:
         "radii": chans["radii"],
         "visibility_filter": chans["radii"] > 0,
     }
+
+
+def render_batch(xyz, scaling, rotation, opacity, T_cw, K,
+                 params: RenderParams, depth_ratio: float = 0.0,
+                 tiles=None) -> dict:
+    """Multi-view render over one surfel set: T_cw [B, 4, 4], K [B, 3, 3]
+    -> the render package with a leading [B] axis on every entry.  The
+    cuda backend runs all B views through one launch of each kernel
+    (``tiles`` from prepare_tiles_batch reuses a frozen binning); the eager
+    renderer loops over the views."""
+    if _resolve_backend(params.backend) == "cuda":
+        from .cuda_raster import rasterize_cuda_batched
+        chans = rasterize_cuda_batched(xyz, scaling, rotation, opacity, T_cw,
+                                       K, params, tiles=tiles)
+    else:
+        views = [rasterize_eager(xyz, scaling, rotation, opacity, T_cw[v],
+                                 K[v], params.height, params.width,
+                                 params.chunk)
+                 for v in range(T_cw.shape[0])]
+        chans = {k: torch.stack([c[k] for c in views]) for k in views[0]}
+    pkgs = [_decode({k: c[v] for k, c in chans.items()}, T_cw[v], K[v],
+                    depth_ratio) for v in range(T_cw.shape[0])]
+    return {k: torch.stack([p[k] for p in pkgs]) for k in pkgs[0]}
+
+
+def prepare_tiles_batch(xyz, scaling, rotation, opacity, T_cw, K,
+                        params: RenderParams, margin_px: float = 0.0):
+    """Frozen per-view binning states stacked on [B] (None on the eager
+    backend)."""
+    if _resolve_backend(params.backend) != "cuda":
+        return None
+    from .cuda_raster import prepare_tiles_batched
+    return prepare_tiles_batched(xyz, scaling, rotation, opacity, T_cw, K,
+                                 params, margin_px=margin_px)

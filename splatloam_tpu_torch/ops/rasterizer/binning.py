@@ -99,6 +99,55 @@ def build_tile_lists_sorted(packed: common.PackedSurfels, height: int,
     return lists.to(torch.int32), counts.to(torch.int32), None
 
 
+def build_flat_lists(packed: common.PackedSurfels, height: int, width: int,
+                     tile_h: int, tile_w: int, capacity: int, chunk: int,
+                     flat_capacity: int, cap_ty: int = 9, cap_tx: int = 9):
+    """Compacted slot pool of ``layout="flat"``: each tile's depth-ordered
+    segment back to back in one flat array, padded only to the next chunk
+    multiple, so the kernels touch ~sum(counts) slots instead of T*K.
+
+    Returns (flat_ids [E] int32 into F with N = the zero pad row,
+             tile_of_chunk [E/chunk] int32,
+             starts [T+1] int32 chunk-aligned segment starts,
+             counts [T] int32 real per-tile counts), E = flat_capacity.
+
+    Truncation: per-tile counts are capped at ``capacity`` as in the
+    [T, K] layout; when the chunk-padded total exceeds ``flat_capacity``,
+    tiles fill greedily in tile order and the tail tiles lose their
+    deepest entries.  Budget chunks past starts[T] route to the last tile
+    and hold pads only.
+    """
+    if flat_capacity % chunk:
+        raise ValueError("flat_capacity must be a chunk multiple")
+    n = packed.depth.shape[0]
+    n_tiles = (height // tile_h) * (width // tile_w)
+    sorted_keys, sorted_ids = _emit_sorted_keys(
+        packed, height, width, tile_h, tile_w, cap_ty, cap_tx)
+    dev = sorted_keys.device
+    bounds = torch.searchsorted(
+        sorted_keys, torch.arange(n_tiles + 1, device=dev) * (n + 1))
+    seg_starts = bounds[:-1]
+    counts = torch.clamp(bounds[1:] - seg_starts, max=capacity)
+
+    pad_t = (counts + chunk - 1) // chunk * chunk
+    start_t = torch.cat([pad_t.new_zeros(1), torch.cumsum(pad_t, 0)])
+    room_t = torch.minimum(torch.clamp(flat_capacity - start_t[:-1], min=0),
+                           pad_t)
+    counts2 = torch.minimum(counts, room_t)
+    start_clip = torch.clamp(start_t, max=flat_capacity)
+
+    pos = torch.arange(flat_capacity, device=dev)
+    tile_of_pos = torch.clamp(
+        torch.searchsorted(start_clip[1:], pos, right=True), max=n_tiles - 1)
+    j = pos - start_clip[tile_of_pos]
+    src = seg_starts[tile_of_pos] + j
+    valid = j < counts2[tile_of_pos]
+    ids_at = sorted_ids[torch.clamp(src, max=sorted_ids.shape[0] - 1)]
+    flat_ids = torch.where(valid, ids_at, n)
+    return (flat_ids.to(torch.int32), tile_of_pos[::chunk].to(torch.int32),
+            start_clip.to(torch.int32), counts2.to(torch.int32))
+
+
 def _emit_sorted_keys(packed: common.PackedSurfels, height: int,
                       width: int, tile_h: int, tile_w: int,
                       cap_ty: int, cap_tx: int, two_tier: bool = True):
@@ -317,11 +366,12 @@ def tile_rays(K: torch.Tensor, height: int, width: int, tile_h: int,
 
 def untile_px(chans_tiled: torch.Tensor, height: int, width: int,
               tile_h: int, tile_w: int) -> torch.Tensor:
-    """[T, P, C_ch] (pixel-major kernel output) -> [C_ch, H, W]."""
+    """[..., T, P, C_ch] (pixel-major kernel output) -> [..., C_ch, H, W]."""
     ty, tx = height // tile_h, width // tile_w
-    n_ch = chans_tiled.shape[2]
-    a = chans_tiled.reshape(ty, tx, tile_h, tile_w, n_ch)
-    return a.permute(4, 0, 2, 1, 3).reshape(n_ch, height, width)
+    lead, n_ch = chans_tiled.shape[:-3], chans_tiled.shape[-1]
+    a = chans_tiled.reshape(*lead, ty, tx, tile_h, tile_w, n_ch)
+    a = torch.movedim(a, -1, len(lead)).transpose(-3, -2)
+    return a.reshape(*lead, n_ch, height, width)
 
 
 def pack_features(packed: common.PackedSurfels) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""Tiled rasterizer on the hand-written CUDA kernels (forward + backward).
+"""Rasterizer on the hand-written CUDA kernels (forward + backward).
 
-Counterpart of splatloam_tpu/ops/rasterizer/pallas_raster.py, tiled and
-bucketed layouts, one view only:
+Counterpart of splatloam_tpu/ops/rasterizer/pallas_raster.py: the tiled,
+bucketed and flat slot layouts, one view or B views over one surfel set:
 
   * binning.py produces depth-ordered per-tile surfel lists (torch ops);
   * the forward kernel (K1) composites each tile's chunks front to back and
@@ -12,21 +12,28 @@ bucketed layouts, one view only:
       "ranksum" - the rank-space segmented sum (K3) over a rebin-time
                   id-sort, and, when the plan is truncated (RS_TRUNC), the
                   overflow scatter (K6) for the spilled real entries;
-      "rmw"     - an atomic scatter-add (K4);
+      "rmw"     - an atomic scatter-add (K4, or K10 with
+                  ``scatter_tps`` > 1);
       "plan"    - rebin-time occurrence tables: a gather of each surfel's
                   first 4 rows summed in torch, plus K6 for the rest;
       "fused"   - no rows at all: K5 is K2 adding each slot's row into the
                   pool inside the kernel;
-  * ``layout="bucketed"`` splits the tiles into two capacity buckets: K1
-    per bucket, then K2 per bucket + K3 with a ranksum plan, else K5 per
-    bucket;
-  * gradients reach the surfel params and the pose through torch autograd
-    of ``pack_surfels``.
+  * ``layout="bucketed"`` (one view) splits the tiles into two capacity
+    buckets: K1 per bucket, then K2 per bucket + K3 with a ranksum plan,
+    else K5 per bucket;
+  * ``layout="flat"`` packs each tile's slots back to back in one
+    chunk-aligned pool (binning.build_flat_lists): K7 forward, K8 backward,
+    K9 scatter-add; ``scatter`` and ``scatter_tps`` do not apply;
+  * B views (``rasterize_cuda_batched``) share each launch: their features
+    stack into one pool F [B*(N+1), 16], their slot ids carry each view's
+    row offset, and per-view reduction plans reduce view by view;
+  * gradients reach the surfel params and the poses through torch autograd
+    of ``pack_surfels``, summed over the views.
 
-The kernels gather their features from F [N+1, 16] by the tile lists
-themselves, so the JAX package's separate feature gather (and its [T, 16,
-K] copy kept for the backward) has no counterpart here.  On CPU tensors
-every kernel wrapper runs its plain PyTorch version (kernels.py).
+The kernels gather their features from F by the slot ids themselves, so
+the JAX package's separate feature gather (and its [T, 16, K] copy kept
+for the backward) has no counterpart here.  On CPU tensors every kernel
+wrapper runs its plain PyTorch version (kernels.py).
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ RS_TRUNC = 0.0
 PLAN_M = 4
 OV_CHUNK = 512
 SCATTER_MODES = ("rmw", "ranksum", "fused", "plan")
-LAYOUTS = ("tiled", "bucketed")
+LAYOUTS = ("tiled", "bucketed", "flat")
 
 
 class RanksumPlan(NamedTuple):
@@ -78,13 +85,27 @@ class ScatterPlan(NamedTuple):
 class TileAssignment(NamedTuple):
     """Frozen binning state, reusable across optimization iterations (the
     mapper rebins every ``compute.rebin_every`` steps with a pixel margin
-    on the binning radius to absorb parameter drift)."""
+    on the binning radius to absorb parameter drift).  From
+    prepare_tiles_batched every field, the plan's included, has a leading
+    [B] axis."""
     lists: torch.Tensor    # [T, K] int32
     counts: torch.Tensor   # [T] int32
     rays_t: torch.Tensor   # [T, P, 3]
     pix_t: torch.Tensor    # [T, P, 2]
     # None -> the scatter-add (K4) or fused (K5) reduction
     plan: RanksumPlan | ScatterPlan | None = None
+
+
+class FlatTiles(NamedTuple):
+    """Frozen binning state for ``layout="flat"`` (compacted slot pool,
+    binning.build_flat_lists); a leading [B] axis on every field from
+    prepare_tiles_batched."""
+    flat_ids: torch.Tensor       # [E] int32 (pad N)
+    tile_of_chunk: torch.Tensor  # [E/chunk] int32
+    counts: torch.Tensor         # [T] int32 real per-tile counts
+    rays_t: torch.Tensor         # [T, P, 3]
+    pix_t: torch.Tensor          # [T, P, 2]
+    starts: torch.Tensor         # [T+1] int32 chunk-aligned segment starts
 
 
 class BucketedTiles(NamedTuple):
@@ -111,6 +132,16 @@ class _StaticArgs(NamedTuple):
     with_median: bool
     with_dist: bool
     fused: bool
+    scatter_tps: int = 1
+    n_views: int = 1
+
+
+def _static(params, n_views: int = 1) -> _StaticArgs:
+    return _StaticArgs(chunk=params.chunk, width=params.width,
+                       with_median=params.with_median,
+                       with_dist=params.with_dist,
+                       fused=params.scatter == "fused",
+                       scatter_tps=params.scatter_tps, n_views=n_views)
 
 
 def _check_params(params) -> None:
@@ -122,10 +153,6 @@ def _check_params(params) -> None:
     if params.scatter not in SCATTER_MODES:
         raise ValueError(f"unknown scatter mode {params.scatter!r}; the "
                          f"port has {SCATTER_MODES}")
-    if params.layout == "flat":
-        raise NotImplementedError(
-            "layout='flat' is not ported yet (ROADMAP.md, queue 1: the flat "
-            "layout, kernels K7-K9)")
     if params.layout not in LAYOUTS:
         raise ValueError(f"unknown layout {params.layout!r}; the port has "
                          f"{LAYOUTS}")
@@ -156,6 +183,16 @@ def _bucketed_tiles(packed, rays_all, pix_all, n_surfels: int, params):
                          plan=plan)
 
 
+def _flat_capacity_for(params) -> int:
+    """Flat slot budget: ``flat_capacity`` when set, else half the [T, K]
+    slot count, rounded down to a chunk multiple (at least one chunk)."""
+    n_tiles = (params.height // params.tile_h) * \
+        (params.width // params.tile_w)
+    cap = (params.flat_capacity if params.flat_capacity > 0
+           else n_tiles * params.tile_list_capacity // 2)
+    return max(params.chunk, cap // params.chunk * params.chunk)
+
+
 def scatter_plan(lists, n_surfels: int) -> ScatterPlan:
     """The occurrence plan of ``scatter="plan"`` over tile lists [T, K],
     with the JAX package's overflow cap of a sixth of the slots."""
@@ -168,7 +205,8 @@ def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K, params,
                   margin_px: float = 0.0):
     """Binning only (no gradients): depth sort + tile lists + rays, plus
     the reduction's plan (``scatter`` "ranksum" or "plan").  Returns a
-    TileAssignment, or BucketedTiles under ``layout="bucketed"``."""
+    TileAssignment, BucketedTiles under ``layout="bucketed"`` or FlatTiles
+    under ``layout="flat"``."""
     _check_params(params)
     height, width = params.height, params.width
     tile_h, tile_w = params.tile_h, params.tile_w
@@ -186,6 +224,14 @@ def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K, params,
         if params.layout == "bucketed":
             return _bucketed_tiles(packed, rays_all, pix_all, n_surfels,
                                    params)
+        if params.layout == "flat":
+            flat_ids, toc, starts, counts = binning.build_flat_lists(
+                packed, height, width, tile_h, tile_w,
+                params.tile_list_capacity, params.chunk,
+                _flat_capacity_for(params), params.cap_ty, params.cap_tx)
+            return FlatTiles(flat_ids=flat_ids, tile_of_chunk=toc,
+                             counts=counts, rays_t=rays_all, pix_t=pix_all,
+                             starts=starts)
         if params.binner == "sorted":
             lists, counts, _ = binning.build_tile_lists_sorted(
                 packed, height, width, tile_h, tile_w,
@@ -207,8 +253,45 @@ def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K, params,
                           pix_t=pix_all, plan=plan)
 
 
+def prepare_tiles_batched(xyz, scaling, rotation, opacity, T_cw, K, params,
+                          margin_px: float = 0.0):
+    """Per-view binning (poses T_cw [B, 4, 4], intrinsics K [B, 3, 3],
+    one surfel set), stacked on a leading [B] axis."""
+    if params.layout == "bucketed":
+        raise ValueError("layout='bucketed' is single-view (use "
+                         "prepare_tiles)")
+    return _stack_views([
+        prepare_tiles(xyz, scaling, rotation, opacity, T_cw[v], K[v],
+                      params, margin_px=margin_px)
+        for v in range(T_cw.shape[0])])
+
+
+def _stack_views(views):
+    """Per-view binning states (or plans) -> one with a leading [B] axis
+    on every tensor (one view: a view of its tensors, no copy)."""
+    return type(views[0])(*(
+        None if f[0] is None else
+        _stack_views(f) if isinstance(f[0], tuple) else
+        torch.stack(f) if len(f) > 1 else f[0][None]
+        for f in zip(*views)))
+
+
+def _view(state, v: int):
+    """View ``v`` of a state with a leading [B] axis."""
+    return type(state)(*(None if x is None else x[v] for x in state))
+
+
+def _pool_ids(ids, n_plus1: int):
+    """Per-view slot ids [B, ...] -> ids into the pool F [B*(N+1), 16]."""
+    b = ids.shape[0]
+    if b == 1:
+        return ids
+    offs = torch.arange(b, dtype=torch.int32, device=ids.device) * n_plus1
+    return ids + offs.reshape(b, *([1] * (ids.dim() - 1)))
+
+
 def _forward_tiled(F, lists, counts, rays_t, pix_t, static: _StaticArgs):
-    """F [N+1, 16], lists [T, K] -> (out [T, P, 8], tbound [T, P, K/C])."""
+    """F [R, 16], lists [T, K] -> (out [T, P, 8], tbound [T, P, K/C])."""
     return kernels.raster_fwd(F, lists, counts, rays_t, pix_t,
                               chunk=static.chunk, width=static.width,
                               with_median=static.with_median,
@@ -252,43 +335,82 @@ def _scatter_with_plan(rows_all, plan: ScatterPlan, n_plus1: int):
 
 
 def _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, outs, g,
-                    static: _StaticArgs, plan):
-    """-> dF [N+1, 16]: K5 under ``fused``; else K2's per-slot rows,
-    reduced by the plan (K3 (+ K6) or gather-sum + K6) or by K4."""
-    n_plus1 = F.shape[0]
+                    static: _StaticArgs, plans):
+    """-> dF [B*(N+1), 16] over the pool of ``static.n_views`` views: K5
+    under ``fused``; else K2's per-slot rows, reduced view by view by its
+    plan (``plans``, one per view: K3 (+ K6) or gather-sum + K6), or over
+    the pool by K4, or by K10 when ``scatter_tps`` > 1 (reduced to a
+    divisor of the tile count, as the JAX package does)."""
+    n_rows = F.shape[0]
     kw = dict(chunk=static.chunk, width=static.width,
               with_dist=static.with_dist)
     if static.fused:
         return kernels.raster_bwd_fused(F, lists, counts, rays_t, pix_t,
-                                        tbound, outs, g, n_plus1, **kw)
+                                        tbound, outs, g, n_rows, **kw)
     dFg = kernels.raster_bwd(F, lists, counts, rays_t, pix_t, tbound, outs,
                              g, **kw)
-    if isinstance(plan, RanksumPlan):
-        return _reduce_rows_with_ranksum(dFg.reshape(-1, 16), plan, n_plus1)
-    if isinstance(plan, ScatterPlan):
-        return _scatter_with_plan(dFg.reshape(-1, 16), plan, n_plus1)
-    return kernels.scatter_rows(dFg, lists, counts, n_plus1)
+    if plans is not None:
+        b = static.n_views
+        reduce = (_reduce_rows_with_ranksum
+                  if isinstance(plans[0], RanksumPlan) else _scatter_with_plan)
+        rows = dFg.reshape(b, -1, 16)
+        return torch.cat([reduce(rows[v], plans[v], n_rows // b)
+                          for v in range(b)])
+    tps = max(1, static.scatter_tps)
+    while lists.shape[0] % tps:
+        tps //= 2
+    if tps > 1:
+        return kernels.scatter_rows_tps(dFg, lists, counts, n_rows, tps)
+    return kernels.scatter_rows(dFg, lists, counts, n_rows)
 
 
 class _RasterCore(torch.autograd.Function):
-    """out [T, P, 8] = K1(F); its backward is K5, or K2 then the plan's
-    reduction or K4.  Only F receives a gradient."""
+    """out [B*T, P, 8] = K1(F) over the pool F [B*(N+1), 16] and the
+    views' offset lists [B*T, K]; its backward is K5, or K2 then the
+    per-view plans' reduction or K4/K10.  Only F receives a gradient."""
 
     @staticmethod
-    def forward(ctx, F, lists, counts, rays_t, pix_t, static, plan):
+    def forward(ctx, F, lists, counts, rays_t, pix_t, static, plans):
         out, tbound = _forward_tiled(F, lists, counts, rays_t, pix_t,
                                      static)
         ctx.save_for_backward(F, lists, counts, rays_t, pix_t, tbound, out)
         ctx.static = static
-        ctx.plan = plan
+        ctx.plans = plans
         return out
 
     @staticmethod
     def backward(ctx, g):
         F, lists, counts, rays_t, pix_t, tbound, out = ctx.saved_tensors
         dF = _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, out,
-                             g.contiguous(), ctx.static, ctx.plan)
+                             g.contiguous(), ctx.static, ctx.plans)
         return dF, None, None, None, None, None, None
+
+
+class _RasterCoreFlat(torch.autograd.Function):
+    """out [B*T, P, 8] = K7(F) over the pool F [B*(N+1), 16], the views'
+    offset flat slot ids [B*E] and segment starts [B, T+1]; its backward
+    is K8's per-slot rows summed into the pool by K9."""
+
+    @staticmethod
+    def forward(ctx, F, ids, starts, rays_t, pix_t, static):
+        out, tbound = kernels.raster_fwd_flat(
+            F, ids, starts, rays_t, pix_t, chunk=static.chunk,
+            width=static.width, with_median=static.with_median,
+            with_dist=static.with_dist)
+        ctx.save_for_backward(F, ids, starts, rays_t, pix_t, tbound, out)
+        ctx.static = static
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        F, ids, starts, rays_t, pix_t, tbound, out = ctx.saved_tensors
+        static = ctx.static
+        rows = kernels.raster_bwd_flat(
+            F, ids, starts, rays_t, pix_t, tbound, out, g.contiguous(),
+            chunk=static.chunk, width=static.width,
+            with_dist=static.with_dist)
+        dF = kernels.scatter_rows_flat(rows, ids, F.shape[0])
+        return dF, None, None, None, None, None
 
 
 class _RasterCoreBucketed(torch.autograd.Function):
@@ -334,35 +456,77 @@ class _RasterCoreBucketed(torch.autograd.Function):
         return dF, None, None
 
 
+def _channels(out, radii, params) -> dict:
+    """Kernel output [B, T, P, 8] -> the channel dict with a leading [B]."""
+    chans = binning.untile_px(out, params.height, params.width,
+                              params.tile_h, params.tile_w)
+    return {
+        "depth_sum": chans[:, 0],
+        "alpha": chans[:, 1],
+        "normal_sum": torch.movedim(chans[:, 2:5], 1, -1),
+        "median": chans[:, 5],
+        "dist": chans[:, 6],
+        "final_T": chans[:, 7],
+        "radii": radii,
+    }
+
+
 def rasterize_cuda(xyz, scaling, rotation, opacity, T_cw, K, params,
-                   tiles: TileAssignment | BucketedTiles | None = None
-                   ) -> dict:
+                   tiles: TileAssignment | FlatTiles | BucketedTiles
+                   | None = None) -> dict:
     """Channel dict matching eager_ref.rasterize_eager, through the kernel
-    path (``tiles`` reuses a frozen binning)."""
+    path (``tiles`` reuses a frozen binning): the one-view case of
+    rasterize_cuda_batched, or the bucketed layout."""
     _check_params(params)
-    height, width = params.height, params.width
-    tile_h, tile_w = params.tile_h, params.tile_w
-    packed = common.pack_surfels(xyz, scaling, rotation, opacity, T_cw, K)
     if tiles is None:
         tiles = prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K,
                               params)
+    if not isinstance(tiles, BucketedTiles):
+        chans = rasterize_cuda_batched(xyz, scaling, rotation, opacity,
+                                       T_cw[None], K[None], params,
+                                       tiles=_stack_views([tiles]))
+        return {k: v[0] for k, v in chans.items()}
+    packed = common.pack_surfels(xyz, scaling, rotation, opacity, T_cw, K)
     F = binning.pack_features(packed)
-    static = _StaticArgs(chunk=params.chunk, width=width,
-                         with_median=params.with_median,
-                         with_dist=params.with_dist,
-                         fused=params.scatter == "fused")
-    if isinstance(tiles, BucketedTiles):
-        out = _RasterCoreBucketed.apply(F, tiles, static)
+    out = _RasterCoreBucketed.apply(F, tiles, _static(params))
+    return {k: v[0] for k, v in
+            _channels(out[None], packed.radius_px[None], params).items()}
+
+
+def rasterize_cuda_batched(xyz, scaling, rotation, opacity, T_cw, K, params,
+                           tiles: TileAssignment | FlatTiles | None = None
+                           ) -> dict:
+    """Multi-view rasterization: poses T_cw [B, 4, 4] and intrinsics
+    K [B, 3, 3] over one surfel set, all views in one launch of each
+    kernel.  Every channel gains a leading [B] axis; ``tiles`` (from
+    prepare_tiles_batched) reuses a frozen binning."""
+    _check_params(params)
+    if params.layout == "bucketed":
+        raise ValueError("layout='bucketed' is single-view (use "
+                         "rasterize_cuda)")
+    b = T_cw.shape[0]
+    packed = [common.pack_surfels(xyz, scaling, rotation, opacity, T_cw[v],
+                                  K[v]) for v in range(b)]
+    if tiles is None:
+        tiles = prepare_tiles_batched(xyz, scaling, rotation, opacity, T_cw,
+                                      K, params)
+    feats = [binning.pack_features(p) for p in packed]
+    F = feats[0] if b == 1 else torch.cat(feats)
+    n_plus1 = F.shape[0] // b
+    static = _static(params, b)
+    rays = tiles.rays_t.reshape(-1, *tiles.rays_t.shape[2:])
+    pix = tiles.pix_t.reshape(-1, *tiles.pix_t.shape[2:])
+    if isinstance(tiles, FlatTiles):
+        out = _RasterCoreFlat.apply(
+            F, _pool_ids(tiles.flat_ids, n_plus1).reshape(-1),
+            tiles.starts, rays, pix, static)
     else:
-        out = _RasterCore.apply(F, tiles.lists, tiles.counts, tiles.rays_t,
-                                tiles.pix_t, static, tiles.plan)
-    chans = binning.untile_px(out, height, width, tile_h, tile_w)
-    return {
-        "depth_sum": chans[0],
-        "alpha": chans[1],
-        "normal_sum": torch.movedim(chans[2:5], 0, -1),
-        "median": chans[5],
-        "dist": chans[6],
-        "final_T": chans[7],
-        "radii": packed.radius_px,
-    }
+        plans = (None if tiles.plan is None else
+                 tuple(_view(tiles.plan, v) for v in range(b)))
+        lists = _pool_ids(tiles.lists, n_plus1)
+        out = _RasterCore.apply(F, lists.reshape(-1, lists.shape[-1]),
+                                tiles.counts.reshape(-1), rays, pix, static,
+                                plans)
+    radii = (packed[0].radius_px[None] if b == 1 else
+             torch.stack([p.radius_px for p in packed]))
+    return _channels(out.reshape(b, -1, *out.shape[1:]), radii, params)

@@ -8,6 +8,10 @@ plain PyTorch versions.
   K4 scatter_rows      <- pallas_raster.py:_scatter_rows_kernel
   K5 raster_bwd_fused  <- pallas_raster.py:_bwd_kernel (fused=True)
   K6 scatter_overflow  <- pallas_raster.py:_scatter_overflow_kernel
+  K7 raster_fwd_flat   <- pallas_raster.py:_fwd_kernel_flat
+  K8 raster_bwd_flat   <- pallas_raster.py:_bwd_kernel_flat
+  K9 scatter_rows_flat <- pallas_raster.py:_scatter_rows_kernel_flat
+  K10 scatter_rows_tps <- pallas_raster.py:_scatter_rows_kernel_batched
 
 Each wrapper takes the plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel (built at first use from
@@ -21,6 +25,14 @@ pix [T, P, 2], out [T, P, 8] = (depth_sum, alpha, normal_sum[3], median,
 dist, final_T), tbound [T, P, K/chunk] chunk-start transmittance (0 for
 chunks the forward skipped), g [T, P, 8] output cotangents, dFg [T, K, 16]
 per-slot feature gradients, dF [N+1, 16] per-surfel feature gradients.
+Several views share one launch through a pool F [B*(N+1), 16] whose
+slot ids carry each view's row offset.
+
+Flat layout (K7-K9): ids [B*E] int32 slot ids into the pool (pads name a
+view's zero row N), starts [B, T+1] int32 chunk-aligned segment starts of
+each view's E slots, tbound [B*E/chunk, P] per flat chunk, rows [B*E, 16]
+per flat slot.  Tile t of view v owns the chunks [starts[v, t],
+starts[v, t+1]); budget chunks past starts[v, T] belong to no tile.
 """
 from __future__ import annotations
 
@@ -90,6 +102,20 @@ KERNELS = {
     "K6_scatter_overflow": Kernel(
         "K6_scatter_overflow", "scatter_overflow.cu",
         "launch_scatter_overflow", (_P,) * 4 + (_I, _P), f"{_TPU}:605"),
+    "K7_fwd_flat": Kernel(
+        "K7_fwd_flat", "raster_fwd_flat.cu", "launch_raster_fwd_flat",
+        (_P,) * 7 + (_I,) * 5 + (_F, _F) + (_I, _I, _P),
+        f"{_TPU}:1087"),
+    "K8_bwd_flat": Kernel(
+        "K8_bwd_flat", "raster_bwd_flat.cu", "launch_raster_bwd_flat",
+        (_P,) * 9 + (_I,) * 5 + (_F, _F) + (_I, _P),
+        f"{_TPU}:1153"),
+    "K9_scatter_rows_flat": Kernel(
+        "K9_scatter_rows_flat", "scatter_rows_flat.cu",
+        "launch_scatter_rows_flat", (_P,) * 3 + (_I, _P), f"{_TPU}:1272"),
+    "K10_scatter_rows_tps": Kernel(
+        "K10_scatter_rows_tps", "scatter_rows.cu", "launch_scatter_rows_tps",
+        (_P,) * 4 + (_I,) * 3 + (_P,), f"{_TPU}:511"),
 }
 
 
@@ -128,7 +154,7 @@ def build_all() -> dict[str, float]:
     t0 = time.perf_counter()
     for k in KERNELS.values():
         out = _library_path(k.source)
-        if not out.exists():
+        if k.source not in jobs and not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o",
                    str(tmp), str(CSRC_DIR / k.source)]
@@ -168,7 +194,8 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape, device,
+           align: int = 16) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -178,8 +205,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -566,8 +593,181 @@ def scatter_overflow(rows, ids, n_ov, n_rows: int):
     n_entries = rows.shape[0]
     _check("rows", rows, torch.float32, (n_entries, 16), dev)
     _check("ids", ids, torch.int32, (n_entries,), dev)
-    _check("n_ov", n_ov, torch.int32, (), dev)
+    # one view's count out of a [B] stack of plans: read as one int
+    _check("n_ov", n_ov, torch.int32, (), dev, align=4)
     dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
     _launch("K6_scatter_overflow", rows.data_ptr(), ids.data_ptr(),
             n_ov.data_ptr(), dF.data_ptr(), n_entries, _stream(rows))
+    return dF
+
+
+# ---------------------------------------------------------------------------
+# K10: K4 with one block per ``tps`` tiles
+# ---------------------------------------------------------------------------
+
+def scatter_rows_tps(dFg, lists, counts, n_rows: int, tps: int):
+    """K10: K4's sums, dFg [T, K, 16] -> dF [n_rows, 16], with one CUDA
+    block covering ``tps`` consecutive tiles (tps must divide T).  Its
+    plain version is K4's."""
+    n_tiles, k_cap = lists.shape
+    if tps < 1 or n_tiles % tps:
+        raise ValueError(f"tps {tps} must divide the tile count {n_tiles}")
+    if not _on_cuda(dFg):
+        return scatter_rows_plain(dFg, lists, counts, n_rows)
+    dev = dFg.device
+    _check("dFg", dFg, torch.float32, (n_tiles, k_cap, 16), dev)
+    _check("lists", lists, torch.int32, (n_tiles, k_cap), dev)
+    _check("counts", counts, torch.int32, (n_tiles,), dev)
+    dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
+    _launch("K10_scatter_rows_tps", dFg.data_ptr(), lists.data_ptr(),
+            counts.data_ptr(), dF.data_ptr(), n_tiles, k_cap, tps,
+            _stream(dFg))
+    return dF
+
+
+# ---------------------------------------------------------------------------
+# K7, K8: forward and backward over the flat slot pool
+# ---------------------------------------------------------------------------
+
+def _flat_as_tiles(ids, starts, chunk: int):
+    """The flat layout as padded per-tile lists, for the plain versions:
+    (lists [B*T, M*chunk], counts [B*T] int32, chunk_of [B*T, M] the flat
+    chunk of each tile's i-th chunk, owned [B*T, M] bool), M = the most
+    chunks any tile owns.  Every owned slot is composited, pads included,
+    as the kernels do."""
+    b = starts.shape[0]
+    dev = ids.device
+    st = starts.long()
+    ncv = ids.shape[0] // b // chunk
+    lo = (st[:, :-1] // chunk
+          + torch.arange(b, device=dev)[:, None] * ncv).reshape(-1)
+    n = ((st[:, 1:] - st[:, :-1]) // chunk).reshape(-1)
+    m = int(n.max()) if n.numel() else 0
+    i = torch.arange(m, device=dev)
+    owned = i[None, :] < n[:, None]
+    chunk_of = lo[:, None] + i[None, :]
+    slots = chunk_of[..., None] * chunk + torch.arange(chunk, device=dev)
+    lists = ids[torch.clamp(slots, max=ids.shape[0] - 1)]
+    return (lists.reshape(n.shape[0], m * chunk),
+            (n * chunk).to(torch.int32), chunk_of, owned)
+
+
+def raster_fwd_flat_plain(F, ids, starts, rays, pix, *, chunk: int,
+                          width: int, with_median: bool, with_dist: bool):
+    """Plain version of K7: K1's plain version over each tile's chunk
+    range, with tbound moved to the flat chunks (0 for chunks no tile
+    owns)."""
+    lists, counts, chunk_of, owned = _flat_as_tiles(ids, starts, chunk)
+    out, tb = raster_fwd_plain(F, lists, counts, rays, pix, chunk=chunk,
+                               width=width, with_median=with_median,
+                               with_dist=with_dist)
+    tbound = rays.new_zeros((ids.shape[0] // chunk, rays.shape[1]))
+    tbound[chunk_of[owned]] = tb.transpose(1, 2)[owned]
+    return out, tbound
+
+
+def _check_flat(F, ids, starts, rays, pix, chunk):
+    n_views, tp1 = starts.shape
+    n_tiles, p_tile = rays.shape[:2]
+    n_slots = ids.shape[0]
+    dev = F.device
+    _check("F", F, torch.float32, (F.shape[0], 16), dev)
+    _check("ids", ids, torch.int32, (n_slots,), dev)
+    _check("starts", starts, torch.int32, (n_views, tp1), dev)
+    _check("rays", rays, torch.float32, (n_views * (tp1 - 1), p_tile, 3),
+           dev)
+    _check("pix", pix, torch.float32, (n_tiles, p_tile, 2), dev)
+    if p_tile % 32 or p_tile > MAX_TILE_PIXELS:
+        raise ValueError(f"tile of {p_tile} pixels: the kernels take a "
+                         f"multiple of 32 up to {MAX_TILE_PIXELS}")
+    if chunk % SUB or chunk > MAX_CHUNK or n_slots % (n_views * chunk):
+        raise ValueError(f"chunk {chunk} must be a multiple of {SUB} up "
+                         f"to {MAX_CHUNK} dividing each view's slots")
+    return n_tiles, p_tile, n_slots // n_views, tp1 - 1
+
+
+def raster_fwd_flat(F, ids, starts, rays, pix, *, chunk: int, width: int,
+                    with_median: bool, with_dist: bool):
+    """K7: (out [B*T, P, 8], tbound [B*E/chunk, P]); a tile that owns no
+    chunk comes out as the empty state (zeros, final T = 1)."""
+    if not _on_cuda(F):
+        return raster_fwd_flat_plain(F, ids, starts, rays, pix, chunk=chunk,
+                                     width=width, with_median=with_median,
+                                     with_dist=with_dist)
+    n_tiles, p_tile, e_view, t_view = _check_flat(F, ids, starts, rays, pix,
+                                                  chunk)
+    out = torch.empty((n_tiles, p_tile, 8), dtype=torch.float32,
+                      device=F.device)
+    tbound = torch.zeros((ids.shape[0] // chunk, p_tile),
+                         dtype=torch.float32, device=F.device)
+    _launch("K7_fwd_flat", F.data_ptr(), ids.data_ptr(), starts.data_ptr(),
+            rays.data_ptr(), pix.data_ptr(), out.data_ptr(),
+            tbound.data_ptr(), n_tiles, e_view, t_view, chunk, p_tile,
+            float(width), 1.0 / width, int(with_median), int(with_dist),
+            _stream(F))
+    return out, tbound
+
+
+def raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound, outs, g, *,
+                          chunk: int, width: int, with_dist: bool):
+    """Plain version of K8: K2's plain version over each tile's chunk
+    range, its rows moved to the flat slots (0 for chunks no tile owns)."""
+    lists, counts, chunk_of, owned = _flat_as_tiles(ids, starts, chunk)
+    n_tiles, m = owned.shape
+    tb = tbound.new_zeros((n_tiles, m, tbound.shape[1]))
+    tb[owned] = tbound[chunk_of[owned]]
+    dFg = raster_bwd_plain(F, lists, counts, rays, pix, tb.transpose(1, 2),
+                           outs, g, chunk=chunk, width=width,
+                           with_dist=with_dist)
+    rows = F.new_zeros((ids.shape[0] // chunk, chunk, 16))
+    rows[chunk_of[owned]] = dFg.reshape(n_tiles, m, chunk, 16)[owned]
+    return rows.reshape(-1, 16)
+
+
+def raster_bwd_flat(F, ids, starts, rays, pix, tbound, outs, g, *,
+                    chunk: int, width: int, with_dist: bool):
+    """K8: rows [B*E, 16] per flat slot (the median channel is not
+    differentiated); rows of chunks the forward skipped and of chunks no
+    tile owns are 0."""
+    if not _on_cuda(F):
+        return raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound,
+                                     outs, g, chunk=chunk, width=width,
+                                     with_dist=with_dist)
+    n_tiles, p_tile, e_view, t_view = _check_flat(F, ids, starts, rays, pix,
+                                                  chunk)
+    dev = F.device
+    _check("tbound", tbound, torch.float32,
+           (ids.shape[0] // chunk, p_tile), dev)
+    _check("outs", outs, torch.float32, (n_tiles, p_tile, 8), dev)
+    _check("g", g, torch.float32, (n_tiles, p_tile, 8), dev)
+    rows = torch.zeros((ids.shape[0], 16), dtype=torch.float32, device=dev)
+    _launch("K8_bwd_flat", F.data_ptr(), ids.data_ptr(), starts.data_ptr(),
+            rays.data_ptr(), pix.data_ptr(), tbound.data_ptr(),
+            outs.data_ptr(), g.data_ptr(), rows.data_ptr(), n_tiles, e_view,
+            t_view, chunk, p_tile, float(width), 1.0 / width, int(with_dist),
+            _stream(F))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# K9: scatter-add of every flat slot's row
+# ---------------------------------------------------------------------------
+
+def scatter_rows_flat_plain(rows, ids, n_rows: int):
+    """Plain version of K9: dF[ids[j]] += rows[j] for every slot j."""
+    return rows.new_zeros((n_rows, 16)).index_add_(0, ids.long(), rows)
+
+
+def scatter_rows_flat(rows, ids, n_rows: int):
+    """K9: rows [S, 16], ids [S] int32 -> dF [n_rows, 16] (pads add into
+    their view's dummy row N)."""
+    if not _on_cuda(rows):
+        return scatter_rows_flat_plain(rows, ids, n_rows)
+    dev = rows.device
+    n_slots = ids.shape[0]
+    _check("rows", rows, torch.float32, (n_slots, 16), dev)
+    _check("ids", ids, torch.int32, (n_slots,), dev)
+    dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
+    _launch("K9_scatter_rows_flat", rows.data_ptr(), ids.data_ptr(),
+            dF.data_ptr(), n_slots, _stream(rows))
     return dF

@@ -1,15 +1,16 @@
 """Mapper: densify -> optimize -> prune on one device.
 
-Counterpart of splatloam_tpu/slam/mapper.py, single device and one view
-per iteration:
+Counterpart of splatloam_tpu/slam/mapper.py, single device:
 
   * densify: candidate mask from the rendered alpha + optional depth-error
     quantile; weighted sampling without replacement by Gumbel-top-k;
     back-projection; KNN scale init; normal-aligned rotations; writes
     into free surfel slots.
   * optimize: a Python loop over rebin blocks of Adam iterations, each
-    block on one keyframe drawn from the geometric replay distribution,
-    with the paper's losses (Eq 15-17) and EMA early stopping.
+    block on one keyframe drawn from the geometric replay distribution (or
+    ``mapping.views_per_iteration`` keyframes drawn with replacement,
+    rendered in one batched pass and their losses averaged), with the
+    paper's losses (Eq 15-17) and EMA early stopping.
   * prune: mask-clear by opacity/scale thresholds.
 
 Randomness comes from a ``torch.Generator`` owned by ``Mapper``;
@@ -34,7 +35,8 @@ from ..model.frame import Frame
 from ..model.local_model import LocalModel
 from ..ops import knn
 from ..ops.rasterizer.api import (RenderParams, adaptive_geometry,
-                                  fit_geometry, prepare_tiles, render)
+                                  fit_geometry, prepare_tiles,
+                                  prepare_tiles_batch, render, render_batch)
 from ..profiling import get_profiler
 
 logger = get_logger("mapper")
@@ -72,7 +74,8 @@ def run_block_loop(surfels, adam, kf_indices, *, num_iters: int, rebin: int,
                    make_tiles, one_iter):
     """Optimize scaffold: a loop over rebin blocks with EMA early stopping.
 
-    kf_indices [n_blocks] holds each block's keyframe index;
+    kf_indices [n_blocks] holds each block's keyframe index, or
+    [n_blocks, views] its keyframe indices;
     make_tiles(surfels, kf_idx) -> frozen tile assignment (or None);
     one_iter(surfels, adam, kf_idx, tiles) -> (surfels, adam, loss).
     Returns (surfels, adam, loss EMA, iterations run).  With ``early`` the
@@ -220,6 +223,7 @@ class MapperPrograms:
             # the mapping losses use expected depth only (+ median iff
             # depth_ratio > 0); the distortion channel is never in the loss
             with_median=oc.depth_ratio > 0, with_dist=False)
+        self.views = max(1, int(mc.views_per_iteration or 1))
         self.max_new = int(np.ceil(
             max(mc.densify_percentage, 1e-3) * height * width)) + 1
         self.hyper = S.AdamHyper(lr_xyz=oc.position_lr,
@@ -239,49 +243,67 @@ class MapperPrograms:
                             mc=self.cfg.mapping, max_new=self.max_new,
                             height=self.height, width=self.width)
 
-    def _loss(self, params: S.SurfelParams, active, kf: KeyframeBatch,
-              kf_idx, tiles=None):
+    def _image_losses(self, pkg, gt_depth, valid):
+        """Depth L1 + Eq 16 + Eq 15 of each view, over the last two (H, W)
+        dims of the render package."""
         mc = self.cfg.mapping
-        cam_K = kf.K[kf_idx]
-        cam_T = kf.T_cw[kf_idx]
-        gt_depth = kf.depth[kf_idx]
-        valid = kf.valid[kf_idx]
-
-        scaling = torch.exp(params.log_scale)
-        opacity = torch.sigmoid(params.logit_opacity) * active
-        pkg = render(params.xyz, scaling, params.quat, opacity, cam_T,
-                     cam_K, self.params, self.cfg.opt.depth_ratio,
-                     tiles=tiles)
-
+        hw = (-2, -1)
         validf = valid.to(torch.float32)
-        n_valid = torch.clamp(torch.sum(validf), min=1.0)
+        n_valid = torch.clamp(torch.sum(validf, dim=hw), min=1.0)
         # depth L1: mean over ALL pixels of |valid * (est - gt)|
         geom_l1 = torch.mean(torch.abs(validf * (pkg["surf_depth"]
-                                                 - gt_depth)))
+                                                 - gt_depth)), dim=hw)
         # Eq 15: normal consistency on valid pixels
         ndot = torch.sum(pkg["rend_normal"] * pkg["surf_normal"], dim=-1)
-        normal_loss = torch.sum((1.0 - ndot) * validf) / n_valid
+        normal_loss = torch.sum((1.0 - ndot) * validf, dim=hw) / n_valid
         normal_loss = normal_loss * mc.opt_lambda_normal
         # Eq 16: BCE(alpha, valid) on valid pixels (targets are 1)
         a = torch.clamp(pkg["rend_alpha"], 1e-7, 1.0 - 1e-7)
-        alpha_loss = torch.sum(-torch.log(a) * validf) / n_valid
+        alpha_loss = torch.sum(-torch.log(a) * validf, dim=hw) / n_valid
         alpha_loss = alpha_loss * mc.opt_lambda_alpha
-        # Eq 17: scale-overflow penalty on active surfels
+        return geom_l1 + alpha_loss + normal_loss
+
+    def _scale_penalty(self, scaling, active):
+        """Eq 17: scale-overflow penalty on active surfels."""
+        mc = self.cfg.mapping
         # amax splits the gradient between tied scales, as jnp.max does
         smax = torch.amax(scaling, dim=-1)
         # maximum (not clamp) halves the gradient at a tie, as jnp.maximum
         # does: a scale initialized at exactly opt_scaling_max sits there
         over = torch.maximum(smax - mc.opt_scaling_max,
                              torch.zeros_like(smax)) * active
-        reg_scales = mc.opt_scaling_max_penalty * torch.sum(over)
-        return geom_l1 + alpha_loss + normal_loss + reg_scales
+        return mc.opt_scaling_max_penalty * torch.sum(over)
+
+    def _loss(self, params: S.SurfelParams, active, kf: KeyframeBatch,
+              kf_idx, tiles=None):
+        scaling = torch.exp(params.log_scale)
+        opacity = torch.sigmoid(params.logit_opacity) * active
+        pkg = render(params.xyz, scaling, params.quat, opacity,
+                     kf.T_cw[kf_idx], kf.K[kf_idx], self.params,
+                     self.cfg.opt.depth_ratio, tiles=tiles)
+        return (self._image_losses(pkg, kf.depth[kf_idx], kf.valid[kf_idx])
+                + self._scale_penalty(scaling, active))
+
+    def _loss_multi(self, params: S.SurfelParams, active, kf: KeyframeBatch,
+                    kf_idx, tiles=None):
+        """views_per_iteration > 1: the mean of the per-view losses of the
+        keyframes kf_idx [B], rendered through one batched pass."""
+        scaling = torch.exp(params.log_scale)
+        opacity = torch.sigmoid(params.logit_opacity) * active
+        pkg = render_batch(params.xyz, scaling, params.quat, opacity,
+                           kf.T_cw[kf_idx], kf.K[kf_idx], self.params,
+                           self.cfg.opt.depth_ratio, tiles=tiles)
+        return (torch.mean(self._image_losses(pkg, kf.depth[kf_idx],
+                                              kf.valid[kf_idx]))
+                + self._scale_penalty(scaling, active))
 
     def one_iter(self, surf: S.Surfels, st: S.AdamState, kf: KeyframeBatch,
                  kf_idx, tiles):
         """One Adam iteration: loss, gradients, masked Adam step."""
         params = S.SurfelParams(*(p.detach().requires_grad_(True)
                                   for p in surf.params))
-        loss = self._loss(params, surf.active, kf, kf_idx, tiles)
+        loss_fn = self._loss if self.views == 1 else self._loss_multi
+        loss = loss_fn(params, surf.active, kf, kf_idx, tiles)
         grads = S.SurfelParams(*torch.autograd.grad(loss, params))
         surf, st = S.adam_step(surf, st, grads, self.hyper)
         return surf, st, loss.detach()
@@ -297,10 +319,10 @@ class MapperPrograms:
         def make_tiles(surf, kf_idx):
             scaling = torch.exp(surf.params.log_scale)
             opacity = torch.sigmoid(surf.params.logit_opacity) * surf.active
-            return prepare_tiles(surf.params.xyz, scaling, surf.params.quat,
-                                 opacity, kf.T_cw[kf_idx], kf.K[kf_idx],
-                                 self.params,
-                                 margin_px=self.cfg.compute.bin_margin_px)
+            prep = prepare_tiles if self.views == 1 else prepare_tiles_batch
+            return prep(surf.params.xyz, scaling, surf.params.quat, opacity,
+                        kf.T_cw[kf_idx], kf.K[kf_idx], self.params,
+                        margin_px=self.cfg.compute.bin_margin_px)
 
         return run_block_loop(
             surfels, adam, kf_indices,
@@ -331,10 +353,6 @@ class Mapper:
     """
 
     def __init__(self, cfg: Configuration, device=None, seed: int = 0):
-        views = int(cfg.mapping.views_per_iteration or 1)
-        if views > 1:
-            raise NotImplementedError(
-                "mapping.views_per_iteration > 1 is not ported yet")
         if cfg.parallel.data * cfg.parallel.model > 1:
             raise NotImplementedError(
                 "multi-device mapping (parallel.data*model > 1) is not "
@@ -367,9 +385,13 @@ class Mapper:
         return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
     def _draw_keyframes(self, probs: np.ndarray, n_blocks: int):
+        """Per-block keyframe indices: [n_blocks], or [n_blocks, views]
+        with views_per_iteration > 1 (drawn with replacement)."""
+        views = max(1, int(self.cfg.mapping.views_per_iteration or 1))
         p = torch.as_tensor(probs, dtype=torch.float32, device=self.device)
-        return torch.multinomial(p, n_blocks, replacement=True,
-                                 generator=self.generator)
+        idx = torch.multinomial(p, n_blocks * views, replacement=True,
+                                generator=self.generator)
+        return idx if views == 1 else idx.reshape(n_blocks, views)
 
     def _stack_keyframes(self, kf_cap: int) -> KeyframeBatch:
         """Keyframe batch from the model's incremental device-side stack."""
