@@ -9,7 +9,7 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
   1. holds each kernel (K1 forward, K2 backward, K3 ranksum reduction,
      K4 scatter-add reduction, K5 backward fused with the scatter-add, K6
      overflow scatter-add, K7/K8/K9 forward, backward and scatter-add of
-     the flat slot layout, K10 the scatter-add with 8 tiles per block)
+     the flat slot layout, K10 the scatter-add under scatter_tps 8)
      against its plain PyTorch version on the card, at the mapper's
      full-width shapes (64x1024 image, 4x16 tiles, chunk 256, 768 slots
      per tile, 100k surfels) and K1/K2 also at the small-pool geometry
@@ -19,7 +19,15 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      uncapped overflow count printed beside the cap) and under a
      truncated ranksum plan, each held against K4; K7 is held against K1
      and K8 + K9 against K2 + K4 under a flat budget that drops nothing,
-     K10 against K4; the default flat budget's drops are printed;
+     K10 against K4; the default flat budget's drops are printed; then K6
+     and K10 on adversarial inputs (one surfel owning every overflow
+     entry, n_ov 0 and 1, shuffled ids; K10 at tps 1, 2, 8 and T), each
+     against its plain version and K4.  Kernel and index_add_ times are
+     device time from a CUDA graph replay (``time_ms``: the host launches
+     nothing while it runs), each reduction and its index_add_ with its
+     own zero fill of dF; the reductions also print their kernels' times
+     under torch.profiler and the earlier CUDA-event loop beside it; the
+     plain versions, which wait on the host, are timed by that loop;
   2. holds ``render`` on the cuda backend against the eager golden
      renderer (values and gradients) on a reduced scene, the gradients of
      scatter "fused" and "plan" and of layouts "bucketed" and "flat"
@@ -72,8 +80,74 @@ def fail(msg: str) -> None:
     raise SystemExit(f"FAIL: {msg}")
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs, after a warm-up."""
+def device_events(prof):
+    """The device-side rows of a profile (kernels, copies), without the
+    operators that launched them, which carry the same device time
+    again."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured into one
+    CUDA graph, one replay timed between two CUDA events, over reps.  The
+    host launches nothing during the replay, so its pace does not enter;
+    the device's own gaps between kernels do, and every kernel fn
+    launches counts, the zero fill of its output included.  fn must not
+    wait on the host (the plain versions do: ``event_ms`` times them)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profile_ms(fn, reps: int = 20) -> str:
+    """fn's kernels and their device time per call under torch.profiler,
+    as text: the split that ``time_ms`` cannot give.  The profiler drops
+    some device records of long kernels later in a run (seen on the H100
+    once the mapper had run), so a kernel whose count is not a multiple
+    of reps is marked, and these numbers are never used as times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(device_events(prof),
+                    key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    parts = ", ".join(
+        f"{e.key[:48]} {e.self_device_time_total / 1e3 / reps:.4f}"
+        + (f" (records lost: {e.count} for {reps} calls)"
+           if e.count % reps else "")
+        for e in events)
+    return f"{total:.4f} ms ({parts})"
+
+
+def event_ms(fn, reps: int = 10) -> float:
+    """CUDA events around ``reps`` calls issued from Python, over reps:
+    the earlier yardstick.  For a kernel of a few microseconds the host's
+    launch pace sets this number; it times the plain versions, which wait
+    on the host themselves."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -85,6 +159,18 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def yardstick(name, kernel_fn, library_fn) -> tuple[float, float]:
+    """A reduction's wrapper and its index_add_, each with its own zero
+    fill of dF, under the three timers.  Returns their ``time_ms``."""
+    ms, lib_ms = time_ms(kernel_fn), time_ms(library_fn)
+    print(f"[yardstick] {name}: graph replay kernel {ms:.4f} ms, index_add_ "
+          f"{lib_ms:.4f} ms; torch.profiler kernel {profile_ms(kernel_fn)}, "
+          f"index_add_ {profile_ms(library_fn)}; event loop kernel "
+          f"{event_ms(kernel_fn):.4f} ms, index_add_ "
+          f"{event_ms(library_fn):.4f} ms", flush=True)
+    return ms, lib_ms
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -162,7 +248,7 @@ def check_kernels(dev, rng) -> dict:
                    float((tb - tb_p).abs().max()))
         tol1 = 1e-5 * max(1.0, float(out_p.abs().max()))
         ms1 = time_ms(lambda: kernels.raster_fwd(*args, **kw))
-        pms1 = time_ms(lambda: kernels.raster_fwd_plain(*args, **kw), 3)
+        pms1 = event_ms(lambda: kernels.raster_fwd_plain(*args, **kw), 3)
         report(f"K1_fwd[{label}]", err1, tol1, ms1, pms1)
 
         g = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32),
@@ -189,7 +275,7 @@ def check_kernels(dev, rng) -> dict:
               f"{float((dFg_p - dFg_64).abs().max()):.3e}", flush=True)
         del dFg_64
         ms2 = time_ms(lambda: kernels.raster_bwd(*bargs, **bkw))
-        pms2 = time_ms(lambda: kernels.raster_bwd_plain(*bargs, **bkw), 3)
+        pms2 = event_ms(lambda: kernels.raster_bwd_plain(*bargs, **bkw), 3)
         report(f"K2_bwd[{label}]", err2, tol2, ms2, pms2)
         if label != "main":
             continue
@@ -229,7 +315,7 @@ def check_kernels(dev, rng) -> dict:
 
         ms3 = time_ms(lambda: kernels.ranksum_rows(rows, plan.pos,
                                                    plan.ranks, r_alloc))
-        pms3 = time_ms(lambda: kernels.ranksum_rows_plain(
+        pms3 = event_ms(lambda: kernels.ranksum_rows_plain(
             rows, plan.pos, plan.ranks, r_alloc))
         pos_l = plan.pos.long()
         rank_l = plan.ranks.long().clamp(min=0)
@@ -237,28 +323,29 @@ def check_kernels(dev, rng) -> dict:
             0, rank_l, rows[pos_l]))
         report("K3_ranksum[main]", err3, tol34, ms3, pms3, lib3)
         E = plan.pos.numel()
-        n_distinct = int((plan.ranks.max() + 1))
-        b3, by3 = bound(nbytes(rows, plan.pos, plan.ranks)
-                        + n_distinct * 64, E * 16)
+        # every input once, the whole output (the zeroed accumulator)
+        # written once
+        b3, by3 = bound(nbytes(rows, plan.pos, plan.ranks) + r_alloc * 64,
+                        E * 16)
         results["K3_ranksum"] = dict(max_abs_err=err3, ms=ms3,
                                      plain_ms=pms3, bound_ms=b3,
                                      bound_by=by3, library_ms=lib3)
 
-        ms4 = time_ms(lambda: kernels.scatter_rows(dFg, tiles.lists,
-                                                   tiles.counts, n_rows))
-        pms4 = time_ms(lambda: kernels.scatter_rows_plain(
+        pms4 = event_ms(lambda: kernels.scatter_rows_plain(
             dFg, tiles.lists, tiles.counts, n_rows))
         real = (torch.arange(tiles.lists.shape[1], device=dev)[None, :]
                 < tiles.counts[:, None])
         ids_real = tiles.lists[real].long()
         rows_real = dFg[real]
-        lib4 = time_ms(lambda: dFg.new_zeros((n_rows, 16)).index_add_(
-            0, ids_real, rows_real))
+        ms4, lib4 = yardstick(
+            "K4", lambda: kernels.scatter_rows(dFg, tiles.lists,
+                                               tiles.counts, n_rows),
+            lambda: dFg.new_zeros((n_rows, 16)).index_add_(0, ids_real,
+                                                           rows_real))
         report("K4_scatter_rows[main]", err4, tol34, ms4, pms4, lib4)
         n_real = int(real.sum())
-        n_touched = int(torch.unique(ids_real).numel())
         b4, by4 = bound(n_real * (64 + 4) + nbytes(tiles.counts)
-                        + n_touched * 64, n_real * 16)
+                        + n_rows * 64, n_real * 16)
         results["K4_scatter_rows"] = dict(max_abs_err=err4, ms=ms4,
                                           plain_ms=pms4, bound_ms=b4,
                                           bound_by=by4, library_ms=lib4)
@@ -268,10 +355,11 @@ def check_kernels(dev, rng) -> dict:
               f"real slots {n_real}", flush=True)
         results.update(check_fused_and_overflow(
             dev, kernels, binning, cuda_raster, tiles, bargs, bkw, dFg, dF4,
-            n_rows, float(slots.sum()), n_touched, pairs, RS_GROUP * RS_GPS))
+            n_rows, float(slots.sum()), pairs, RS_GROUP * RS_GPS))
         results.update(check_flat_and_tps(
             kernels, cuda_raster, scene, params, tiles, F, (out, tb), g, dFg,
             dF4, pairs, results["K4_scatter_rows"]))
+        check_scatter_adversarial(dev, kernels, cuda_raster, tiles, n_rows)
     return results
 
 
@@ -327,7 +415,7 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     if not err71 <= tol7:
         fail(f"K7 disagrees with K1: {err71} > {tol7}")
     ms7 = time_ms(lambda: kernels.raster_fwd_flat(*args7, **kw))
-    pms7 = time_ms(lambda: kernels.raster_fwd_flat_plain(*args7, **kw), 3)
+    pms7 = event_ms(lambda: kernels.raster_fwd_flat_plain(*args7, **kw), 3)
     report("K7_fwd_flat[main]", err7, tol7, ms7, pms7)
     b7, by7 = bound(nbytes(F, tiles.rays_t, tiles.pix_t, out7) + owned_bytes,
                     pairs * FWD_OPS_PER_PAIR)
@@ -343,7 +431,7 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     err8 = float((rows - rows_p).abs().max())
     tol8 = 2e-3 * float(rows_p.abs().max())
     ms8 = time_ms(lambda: kernels.raster_bwd_flat(*args8, **bkw))
-    pms8 = time_ms(lambda: kernels.raster_bwd_flat_plain(*args8, **bkw), 3)
+    pms8 = event_ms(lambda: kernels.raster_bwd_flat_plain(*args8, **bkw), 3)
     report("K8_bwd_flat[main]", err8, tol8, ms8, pms8)
     b8, by8 = bound(nbytes(F, tiles.rays_t, tiles.pix_t, out7, g)
                     + owned_bytes + n_owned * 64, pairs * BWD_OPS_PER_PAIR)
@@ -361,13 +449,12 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     if not err94 <= tol_sum:
         fail(f"K8 + K9 disagree with K2 + K4: {err94} > {tol_sum}")
     ids_l = ids.long()
-    ms9 = time_ms(lambda: kernels.scatter_rows_flat(rows, ids, n_rows))
-    pms9 = time_ms(lambda: kernels.scatter_rows_flat_plain(rows, ids, n_rows))
-    lib9 = time_ms(lambda: rows.new_zeros((n_rows, 16)).index_add_(
-        0, ids_l, rows))
+    pms9 = event_ms(lambda: kernels.scatter_rows_flat_plain(rows, ids, n_rows))
+    ms9, lib9 = yardstick(
+        "K9", lambda: kernels.scatter_rows_flat(rows, ids, n_rows),
+        lambda: rows.new_zeros((n_rows, 16)).index_add_(0, ids_l, rows))
     report("K9_scatter_rows_flat[main]", err9, tol9, ms9, pms9, lib9)
-    n_touched = int(torch.unique(ids_l[:n_owned]).numel())
-    b9, by9 = bound(n_owned * (64 + 4) + n_touched * 64, n_owned * 16)
+    b9, by9 = bound(n_owned * (64 + 4) + n_rows * 64, n_owned * 16)
     results["K9_scatter_rows_flat"] = dict(
         max_abs_err=err9, ms=ms9, plain_ms=pms9, bound_ms=b9, bound_by=by9,
         library_ms=lib9)
@@ -387,10 +474,11 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
             < tiles.counts[:, None])
     ids_real = tiles.lists[real].long()
     rows_real = dFg[real]
-    ms10 = time_ms(lambda: kernels.scatter_rows_tps(*args10, tps))
-    pms10 = time_ms(lambda: kernels.scatter_rows_plain(*args10))
-    lib10 = time_ms(lambda: dFg.new_zeros((n_rows, 16)).index_add_(
-        0, ids_real, rows_real))
+    pms10 = event_ms(lambda: kernels.scatter_rows_plain(*args10))
+    ms10, lib10 = yardstick(
+        f"K10 (tps {tps})", lambda: kernels.scatter_rows_tps(*args10, tps),
+        lambda: dFg.new_zeros((n_rows, 16)).index_add_(0, ids_real,
+                                                       rows_real))
     report(f"K10_scatter_rows_tps[main, tps {tps}]", err10, tol_sum, ms10,
            pms10, lib10)
     results["K10_scatter_rows_tps"] = dict(
@@ -399,9 +487,86 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     return results
 
 
+def check_scatter_adversarial(dev, kernels, cuda_raster, tiles,
+                              n_rows) -> None:
+    """Phase 1, K6 and K10 on adversarial inputs at the main path's size,
+    each against its plain version and against K4.  The rows are small
+    integers made from the seed, so every order of summation gives the
+    same float32 sums exactly: a disagreement is a fault, not rounding.
+      * K6: one surfel owning all 131,072 overflow entries (one run as
+        long as the capacity); the full-width occurrence plan with n_ov 0,
+        1 and its own count, in id order and with its live entries
+        shuffled (no runs left);
+      * K10: the main path's tiles at tps 1, 2, 8 and T."""
+    lists, counts = tiles.lists, tiles.counts
+    n_tiles, k_cap = lists.shape
+    gen = np.random.default_rng(SEED + 1)
+    rows = torch.tensor(gen.integers(-8, 9, (n_tiles * k_cap + 1, 16),
+                                     dtype=np.int8), device=dev).float()
+    rows[-1] = 0.0
+
+    def via_k4(slots, ids, n):
+        """K4 over the entries (slots, ids)[:n], laid out as 256-slot
+        tiles."""
+        t = max(1, -(-n // 256))
+        lists4 = torch.zeros(t * 256, dtype=torch.int32, device=dev)
+        lists4[:n] = ids[:n]
+        dFg4 = rows.new_zeros((t * 256, 16))
+        dFg4[:n] = rows[slots[:n].long()]
+        counts4 = torch.clamp(n - 256 * torch.arange(t, device=dev), 0,
+                              256).to(torch.int32)
+        return kernels.scatter_rows(dFg4.reshape(t, 256, 16),
+                                    lists4.reshape(t, 256), counts4, n_rows)
+
+    def check(name, out, plain, k4):
+        torch.cuda.synchronize()
+        peak = float(plain.abs().max())
+        tol = 1e-5 * max(1.0, peak)
+        err = float((out - plain).abs().max())
+        err4 = float((out - k4).abs().max())
+        print(f"[adversarial] {name}: max_abs_err {err:.3e} vs plain, "
+              f"{err4:.3e} vs K4 (tol {tol:.3e}, max|dF| {peak:.1f})",
+              flush=True)
+        if not (err <= tol and err4 <= tol):
+            fail(f"{name}: {err} vs plain, {err4} vs K4 > {tol}")
+
+    plan = cuda_raster.scatter_plan(lists, n_rows - 1)
+    cap, n_live = plan.ov_ids.numel(), int(plan.n_ov)
+    hot_slots = torch.tensor(gen.permutation(n_tiles * k_cap)[:cap]
+                             .astype(np.int32), device=dev)
+    hot_ids = torch.full((cap,), n_rows // 2, dtype=torch.int32, device=dev)
+    perm = torch.cat([torch.tensor(gen.permutation(n_live), device=dev),
+                      torch.arange(n_live, cap, device=dev)])
+    cases = [
+        ("one surfel owns all entries", hot_slots, hot_ids, cap),
+        ("plan, n_ov 0", plan.ov_slots, plan.ov_ids, 0),
+        ("plan, n_ov 1", plan.ov_slots, plan.ov_ids, 1),
+        ("plan, in id order", plan.ov_slots, plan.ov_ids, n_live),
+        ("plan, shuffled", plan.ov_slots[perm], plan.ov_ids[perm], n_live)]
+    for name, slots, ids, n in cases:
+        args = (rows, slots, ids, torch.tensor(n, dtype=torch.int32,
+                                               device=dev), n_rows)
+        check(f"K6 {name} (n_ov {n} of {cap})",
+              kernels.scatter_overflow(*args),
+              kernels.scatter_overflow_plain(*args), via_k4(slots, ids, n))
+        if n > 1:
+            ids_l, rows_n = ids[:n].long(), rows[slots[:n].long()]
+            yardstick(f"K6 {name}", lambda: kernels.scatter_overflow(*args),
+                      lambda: rows.new_zeros((n_rows, 16)).index_add_(
+                          0, ids_l, rows_n))
+
+    dFg = rows[:-1].reshape(n_tiles, k_cap, 16)
+    plain = kernels.scatter_rows_plain(dFg, lists, counts, n_rows)
+    k4 = kernels.scatter_rows(dFg, lists, counts, n_rows)
+    for tps in (1, 2, 8, n_tiles):
+        check(f"K10 tps {tps}",
+              kernels.scatter_rows_tps(dFg, lists, counts, n_rows, tps),
+              plain, k4)
+
+
 def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
-                             bargs, bkw, dFg, dF4, n_rows, n_comp, n_touched,
-                             pairs, rs_step) -> dict:
+                             bargs, bkw, dFg, dF4, n_rows, n_comp, pairs,
+                             rs_step) -> dict:
     """Phase 1, K5 and K6 at the main path's shapes, on the tiles and the
     K2 rows of check_kernels; K4's result dF4 is the reduction oracle."""
     results = {}
@@ -421,12 +586,12 @@ def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
     if not err54 <= tol_sum:
         fail(f"K5 disagrees with K2 + K4: {err54} > {tol_sum}")
     ms5 = time_ms(lambda: kernels.raster_bwd_fused(*bargs, n_rows, **bkw))
-    pms5 = time_ms(lambda: kernels.raster_bwd_fused_plain(*bargs, n_rows,
+    pms5 = event_ms(lambda: kernels.raster_bwd_fused_plain(*bargs, n_rows,
                                                           **bkw), 3)
     report("K5_bwd_fused[main]", err5, tol5, ms5, pms5)
-    # K2's inputs, one 64-byte atomic row per composited slot, the touched
-    # pool rows
-    b5, by5 = bound(nbytes(*bargs) + (n_comp + n_touched) * 64,
+    # K2's inputs, one 64-byte atomic row per composited slot, the pool
+    # written once
+    b5, by5 = bound(nbytes(*bargs) + (n_comp + n_rows) * 64,
                     pairs * BWD_OPS_PER_PAIR)
     results["K5_bwd_fused"] = dict(max_abs_err=err5, ms=ms5, plain_ms=pms5,
                                    bound_ms=b5, bound_by=by5,
@@ -444,29 +609,30 @@ def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
           flush=True)
     if n_ov == 0:
         fail("the full-width plan has no overflow: K6 would do no work")
+    # K6 gathers each entry's row from rows1 itself; its index_add_ gets
+    # the same gather
     rows1 = torch.cat([rows, rows.new_zeros((1, 16))])
-    ov_rows = rows1[plan.ov_slots.long()]
-    args6 = (ov_rows, plan.ov_ids, plan.n_ov, n_rows)
+    args6 = (rows1, plan.ov_slots, plan.ov_ids, plan.n_ov, n_rows)
     dF6 = kernels.scatter_overflow(*args6)
     dF6_p = kernels.scatter_overflow_plain(*args6)
     torch.cuda.synchronize()
+    slots6, ids6 = plan.ov_slots[:n_ov].long(), plan.ov_ids[:n_ov].long()
     err6 = float((dF6 - dF6_p).abs().max())
-    tol6 = 1e-5 * max(1.0, float(ov_rows.abs().max()))
+    tol6 = 1e-5 * max(1.0, float(rows1[slots6].abs().max()))
     dF_plan = cuda_raster._scatter_with_plan(rows, plan, n_rows)
     err_p4 = float((dF_plan - dF4)[:-1].abs().max())
     print(f"[kernel] plan gather + K6 vs K4: max_abs_err {err_p4:.3e} "
           f"(tol {tol_sum:.3e})", flush=True)
     if not err_p4 <= tol_sum:
         fail(f"plan gather + K6 disagrees with K4: {err_p4} > {tol_sum}")
-    ms6 = time_ms(lambda: kernels.scatter_overflow(*args6))
-    pms6 = time_ms(lambda: kernels.scatter_overflow_plain(*args6))
-    ids6 = plan.ov_ids[:n_ov].long()
-    rows6 = ov_rows[:n_ov]
-    lib6 = time_ms(lambda: rows.new_zeros((n_rows, 16)).index_add_(
-        0, ids6, rows6))
+    pms6 = event_ms(lambda: kernels.scatter_overflow_plain(*args6))
+    ms6, lib6 = yardstick(
+        "K6 (gather fused)", lambda: kernels.scatter_overflow(*args6),
+        lambda: rows.new_zeros((n_rows, 16)).index_add_(0, ids6,
+                                                        rows1[slots6]))
     report("K6_scatter_overflow[plan]", err6, tol6, ms6, pms6, lib6)
-    b6, by6 = bound(n_ov * 68 + int(torch.unique(ids6).numel()) * 64,
-                    n_ov * 16)
+    # each live entry's row, slot and id read once; the pool written once
+    b6, by6 = bound(n_ov * (64 + 4 + 4) + n_rows * 64, n_ov * 16)
     results["K6_scatter_overflow"] = dict(max_abs_err=err6, ms=ms6,
                                           plain_ms=pms6, bound_ms=b6,
                                           bound_by=by6, library_ms=lib6)
@@ -931,7 +1097,7 @@ def compare_reductions(cfg, mapper, model, rng) -> None:
     """The four reductions on the same pool, keyframe and 32 Adam
     iterations: ms per iteration on the host clock, measured twice (the
     modes in order, then in reverse, against host drift), and each
-    reduction's device time per iteration alone (CUDA events on one
+    reduction's device time per iteration alone (``time_ms`` on one
     rebin's tiles: the backward with its reduction minus K2 on the same
     inputs; for "fused", K5 minus K2)."""
     from splatloam_tpu_torch.ops.rasterizer import (binning, common,
@@ -997,7 +1163,6 @@ def profile_optimize(cfg, mapper, model) -> None:
     rebin (binning + ranksum plan) and one Adam iteration on the host
     clock, then the device time by operation and the device's idle share
     over two rebin blocks under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from splatloam_tpu_torch.slam.mapper import MapperPrograms
@@ -1039,11 +1204,7 @@ def profile_optimize(cfg, mapper, model) -> None:
         progs.optimize(surf, adam, kf, idx)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): the operators that
-    # launched them carry the same device time again
-    rows = [e for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and e.self_device_time_total > 0]
+    rows = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     rows.sort(key=lambda e: -e.self_device_time_total)
     print(f"[profile] 32 iterations: wall {plain_ms:.3f} ms unprofiled, "

@@ -51,8 +51,8 @@ RS_GPS = 64
 # 0 < f < 1 = keep the first f*T*K id-sorted entries plus an overflow list
 # reduced by K6)
 RS_TRUNC = 0.0
-# occurrence columns of the "plan" reduction, and the overflow lists'
-# padding unit (the JAX package's overflow chunk)
+# occurrence columns of the "plan" reduction, and the unit of its overflow
+# cap (the JAX package's overflow chunk)
 PLAN_M = 4
 OV_CHUNK = 512
 SCATTER_MODES = ("rmw", "ranksum", "fused", "plan")
@@ -298,12 +298,6 @@ def _forward_tiled(F, lists, counts, rays_t, pix_t, static: _StaticArgs):
                               with_dist=static.with_dist)
 
 
-def _overflow_rows(rows1, slots, ids, n_ov, n_plus1: int):
-    """K6 over the overflow entries: dF[ids[e]] += rows1[slots[e]] for
-    e < n_ov, the entry count read on the device."""
-    return kernels.scatter_overflow(rows1[slots.long()], ids, n_ov, n_plus1)
-
-
 def _reduce_rows_with_ranksum(rows_all, plan: RanksumPlan, n_plus1: int):
     """rows_all [R, 16] per-slot gradient rows -> dF [N+1, 16] through the
     id-sorted rank plan: K3 sums into a dense rank accumulator, then each
@@ -314,13 +308,8 @@ def _reduce_rows_with_ranksum(rows_all, plan: RanksumPlan, n_plus1: int):
     dF = dFc[plan.rank_of_id.long()]
     if plan.ov_slots is None:
         return dF
-    # pad to the overflow chunk: slot 0 into the discarded dummy row
-    ov_pad = (-plan.ov_slots.shape[0]) % OV_CHUNK
-    ov_slots = torch.nn.functional.pad(plan.ov_slots, (0, ov_pad), value=0)
-    ov_ids = torch.nn.functional.pad(plan.ov_ids, (0, ov_pad),
-                                     value=n_plus1 - 1)
-    return dF + _overflow_rows(rows_all, ov_slots, ov_ids, plan.n_ov,
-                               n_plus1)
+    return dF + kernels.scatter_overflow(rows_all, plan.ov_slots, plan.ov_ids,
+                                         plan.n_ov, n_plus1)
 
 
 def _scatter_with_plan(rows_all, plan: ScatterPlan, n_plus1: int):
@@ -330,8 +319,8 @@ def _scatter_with_plan(rows_all, plan: ScatterPlan, n_plus1: int):
     m = plan.occ.shape[1]
     rows1 = torch.cat([rows_all, rows_all.new_zeros((1, 16))])
     dF = rows1[plan.occ.reshape(-1).long()].reshape(n_plus1, m, 16).sum(1)
-    return dF + _overflow_rows(rows1, plan.ov_slots, plan.ov_ids,
-                               plan.n_ov, n_plus1)
+    return dF + kernels.scatter_overflow(rows1, plan.ov_slots, plan.ov_ids,
+                                         plan.n_ov, n_plus1)
 
 
 def _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, outs, g,

@@ -101,7 +101,7 @@ KERNELS = {
         f"{_TPU}:267"),
     "K6_scatter_overflow": Kernel(
         "K6_scatter_overflow", "scatter_overflow.cu",
-        "launch_scatter_overflow", (_P,) * 4 + (_I, _P), f"{_TPU}:605"),
+        "launch_scatter_overflow", (_P,) * 5 + (_I, _P), f"{_TPU}:605"),
     "K7_fwd_flat": Kernel(
         "K7_fwd_flat", "raster_fwd_flat.cu", "launch_raster_fwd_flat",
         (_P,) * 7 + (_I,) * 5 + (_F, _F) + (_I, _I, _P),
@@ -576,39 +576,44 @@ def raster_bwd_fused(F, lists, counts, rays, pix, tbound, outs, g,
 # K6: count-aware scatter-add of overflow rows
 # ---------------------------------------------------------------------------
 
-def scatter_overflow_plain(rows, ids, n_ov, n_rows: int):
-    """Plain version of K6: dF[ids[e]] += rows[e] for e < n_ov."""
+def scatter_overflow_plain(rows, slots, ids, n_ov, n_rows: int):
+    """Plain version of K6: dF[ids[e]] += rows[slots[e]] for e < n_ov."""
     n = int(n_ov)
     dF = rows.new_zeros((n_rows, 16))
-    return dF.index_add_(0, ids[:n].long(), rows[:n])
+    return dF.index_add_(0, ids[:n].long(), rows[slots[:n].long()])
 
 
-def scatter_overflow(rows, ids, n_ov, n_rows: int):
-    """K6: rows [R, 16], ids [R] int32, n_ov [] int32 live entry count (a
-    device scalar, read by the kernel, never by the host) -> dF
-    [n_rows, 16]."""
+def scatter_overflow(rows, slots, ids, n_ov, n_rows: int):
+    """K6: rows [R, 16] per-slot rows, slots [C] int32 the slot of each
+    overflow entry, ids [C] int32 its surfel id, n_ov [] int32 live entry
+    count (a device scalar, read by the kernel, never by the host) -> dF
+    [n_rows, 16].  The kernel gathers each entry's row itself and sums
+    runs of equal ids (the plans sort their entries by id) before its
+    atomics."""
     if not _on_cuda(rows):
-        return scatter_overflow_plain(rows, ids, n_ov, n_rows)
+        return scatter_overflow_plain(rows, slots, ids, n_ov, n_rows)
     dev = rows.device
-    n_entries = rows.shape[0]
-    _check("rows", rows, torch.float32, (n_entries, 16), dev)
-    _check("ids", ids, torch.int32, (n_entries,), dev)
+    n_entries = ids.shape[0]
+    _check("rows", rows, torch.float32, (rows.shape[0], 16), dev)
+    _check("slots", slots, torch.int32, (n_entries,), dev, align=4)
+    _check("ids", ids, torch.int32, (n_entries,), dev, align=4)
     # one view's count out of a [B] stack of plans: read as one int
     _check("n_ov", n_ov, torch.int32, (), dev, align=4)
     dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
-    _launch("K6_scatter_overflow", rows.data_ptr(), ids.data_ptr(),
-            n_ov.data_ptr(), dF.data_ptr(), n_entries, _stream(rows))
+    _launch("K6_scatter_overflow", rows.data_ptr(), slots.data_ptr(),
+            ids.data_ptr(), n_ov.data_ptr(), dF.data_ptr(), n_entries,
+            _stream(rows))
     return dF
 
 
 # ---------------------------------------------------------------------------
-# K10: K4 with one block per ``tps`` tiles
+# K10: K4's sums with the blocks grouped ``tps`` tiles to a grid row
 # ---------------------------------------------------------------------------
 
 def scatter_rows_tps(dFg, lists, counts, n_rows: int, tps: int):
-    """K10: K4's sums, dFg [T, K, 16] -> dF [n_rows, 16], with one CUDA
-    block covering ``tps`` consecutive tiles (tps must divide T).  Its
-    plain version is K4's."""
+    """K10: K4's sums, dFg [T, K, 16] -> dF [n_rows, 16], with vector
+    loads and atomics and the grid's rows covering ``tps`` consecutive
+    tiles each (tps must divide T).  Its plain version is K4's."""
     n_tiles, k_cap = lists.shape
     if tps < 1 or n_tiles % tps:
         raise ValueError(f"tps {tps} must divide the tile count {n_tiles}")

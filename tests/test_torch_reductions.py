@@ -243,12 +243,14 @@ def test_fused_plain_equals_bwd_then_scatter(rng):
 
 
 def test_overflow_plain_matches_index_add(rng):
-    rows = torch.tensor(rng.normal(size=(700, 16)).astype(np.float32))
+    rows = torch.tensor(rng.normal(size=(900, 16)).astype(np.float32))
+    slots = torch.tensor(rng.permutation(900)[:700].astype(np.int32))
     ids = torch.tensor(rng.integers(0, 50, 700).astype(np.int32))
     n_ov = torch.tensor(613, dtype=torch.int32)
-    ref = torch.zeros((51, 16)).index_add_(0, ids[:613].long(), rows[:613])
+    ref = torch.zeros((51, 16)).index_add_(0, ids[:613].long(),
+                                           rows[slots[:613].long()])
     for fn in (kernels.scatter_overflow_plain, kernels.scatter_overflow):
-        np.testing.assert_array_equal(fn(rows, ids, n_ov, 51).numpy(),
+        np.testing.assert_array_equal(fn(rows, slots, ids, n_ov, 51).numpy(),
                                       ref.numpy())
 
 
