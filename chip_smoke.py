@@ -22,7 +22,15 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      K10 against K4; the default flat budget's drops are printed; then K6
      and K10 on adversarial inputs (one surfel owning every overflow
      entry, n_ov 0 and 1, shuffled ids; K10 at tps 1, 2, 8 and T), each
-     against its plain version and K4.  Kernel and index_add_ times are
+     against its plain version and K4, K4 over 70,000 tiles, and K2 on
+     the main path's tiles at both geometries and on adversarial tiles
+     (counts 0 and K, opaque stacks, one full tile among empty ones), with
+     and without the distortion term, against its plain version in
+     float64 beside the float32 plain version's and the per-pixel body's
+     (K8) errors, tiles with a float32/float64 branch tie held apart and
+     then moved off the tie and held again; the resident warps
+     per SM of K2's body and of the per-pixel body that K5 and K8 keep
+     are printed for both geometries.  Kernel and index_add_ times are
      device time from a CUDA graph replay (``time_ms``: the host launches
      nothing while it runs), each reduction and its index_add_ with its
      own zero fill of dF; the reductions also print their kernels' times
@@ -265,18 +273,19 @@ def check_kernels(dev, rng) -> dict:
         # tolerance, 2e-3 of the largest row entry
         err2 = float((dFg - dFg_p).abs().max())
         tol2 = 2e-3 * float(dFg_p.abs().max())
-        # both against the plain version in float64, to show the gap is
-        # rounding and not a fault of either
-        dFg_64 = kernels.raster_bwd_plain(
-            *(a.double() if a.is_floating_point() else a for a in bargs),
-            **bkw)
-        print(f"[kernel] K2_bwd[{label}] vs float64 plain: kernel "
-              f"{float((dFg - dFg_64).abs().max()):.3e}, float32 plain "
-              f"{float((dFg_p - dFg_64).abs().max()):.3e}", flush=True)
-        del dFg_64
+        for dist in (False, True):
+            hold_bwd_to_float64(f"[kernel] K2_bwd[{label}]", kernels, common,
+                                args, g, params.chunk, dist)
         ms2 = time_ms(lambda: kernels.raster_bwd(*bargs, **bkw))
         pms2 = event_ms(lambda: kernels.raster_bwd_plain(*bargs, **bkw), 3)
         report(f"K2_bwd[{label}]", err2, tol2, ms2, pms2)
+        p_tile = tiles.rays_t.shape[1]
+        warps = [kernels.resident_warps(k, p_tile, params.chunk, d)
+                 for d in (False, True) for k in ("K2_bwd", "K5_bwd_fused")]
+        print(f"[occupancy] {label} ({p_tile} px, chunk {params.chunk}): "
+              f"resident warps per SM, K2 slot-parallel body {warps[0]}, "
+              f"per-pixel body (K5, K8) {warps[1]}; with_dist: {warps[2]} "
+              f"and {warps[3]}", flush=True)
         if label != "main":
             continue
 
@@ -360,6 +369,8 @@ def check_kernels(dev, rng) -> dict:
             kernels, cuda_raster, scene, params, tiles, F, (out, tb), g, dFg,
             dF4, pairs, results["K4_scatter_rows"]))
         check_scatter_adversarial(dev, kernels, cuda_raster, tiles, n_rows)
+        check_bwd_adversarial(dev, kernels, binning, common, scene, tiles,
+                              params.chunk)
     return results
 
 
@@ -466,8 +477,9 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     torch.cuda.synchronize()
     err10 = float((dF10 - dF10_p).abs().max())
     err104 = float((dF10 - dF4).abs().max())
-    print(f"[kernel] K10 (tps {tps}) vs K4 kernel: max_abs_err {err104:.3e} "
-          f"(tol {tol_sum:.3e})", flush=True)
+    # one kernel launch under two names: a check of the wrapper's routing
+    print(f"[kernel] K10 (tps {tps}) vs K4 (the same launch): "
+          f"max_abs_err {err104:.3e} (tol {tol_sum:.3e})", flush=True)
     if not err104 <= tol_sum:
         fail(f"K10 disagrees with K4: {err104} > {tol_sum}")
     real = (torch.arange(k_cap, device=dFg.device)[None, :]
@@ -562,6 +574,232 @@ def check_scatter_adversarial(dev, kernels, cuda_raster, tiles,
         check(f"K10 tps {tps}",
               kernels.scatter_rows_tps(dFg, lists, counts, n_rows, tps),
               plain, k4)
+
+    # K4 over more tiles than a CUDA grid has rows (65,535)
+    big = 70_000
+    lists_b = torch.tensor(gen.integers(0, n_rows - 1, (big, 64),
+                                        dtype=np.int32), device=dev)
+    counts_b = torch.tensor(gen.integers(0, 65, big, dtype=np.int32),
+                            device=dev)
+    dFg_b = torch.tensor(gen.integers(-8, 9, (big, 64, 16), dtype=np.int8),
+                         device=dev).float()
+    plain_b = kernels.scatter_rows_plain(dFg_b, lists_b, counts_b, n_rows)
+    k4_b = kernels.scatter_rows(dFg_b, lists_b, counts_b, n_rows)
+    torch.cuda.synchronize()
+    err_b = float((k4_b - plain_b).abs().max())
+    tol_b = 1e-5 * max(1.0, float(plain_b.abs().max()))
+    print(f"[adversarial] K4 over {big} tiles of 64 slots: max_abs_err "
+          f"{err_b:.3e} vs plain (tol {tol_b:.3e})", flush=True)
+    if not err_b <= tol_b:
+        fail(f"K4 over {big} tiles: {err_b} > {tol_b}")
+
+
+def flat_of_tiles(lists, counts, tb, chunk: int, pad_id: int):
+    """The tiled lists as a flat layout whose tiles own their
+    chunk-padded slots, so K8 (the per-pixel body) replays K2's slots:
+    (ids [T*K], starts [1, T+1], tbound [T*K/chunk, P], pos [T, K] the flat
+    slot of each tiled slot, owned [T, K])."""
+    n_tiles, k_cap = lists.shape
+    dev = lists.device
+    span = (counts.long() + chunk - 1) // chunk * chunk
+    starts = torch.zeros(n_tiles + 1, dtype=torch.long, device=dev)
+    starts[1:] = torch.cumsum(span, 0)
+    j = torch.arange(k_cap, device=dev)
+    owned = j[None, :] < span[:, None]
+    pos = starts[:-1, None] + j[None, :]
+    ids = torch.full((n_tiles * k_cap,), pad_id, dtype=torch.int32,
+                     device=dev)
+    ids[pos[owned]] = lists[owned]
+    ci = torch.arange(k_cap // chunk, device=dev)
+    ch_owned = ci[None, :] < (span // chunk)[:, None]
+    tbf = tb.new_zeros((n_tiles * k_cap // chunk, tb.shape[1]))
+    tbf[(starts[:-1, None] // chunk + ci[None, :])[ch_owned]] = \
+        tb.transpose(1, 2)[ch_owned]
+    return ids, starts[None].int(), tbf, pos, owned
+
+
+def check_bwd_adversarial(dev, kernels, binning, common, scene, tiles,
+                          chunk) -> None:
+    """Phase 1, K2 on adversarial inputs at the main path's width, with
+    and without the distortion term, each against the plain version in
+    float64 at 2e-3 * max|dFg64| (the repo's gradient tolerance), its
+    error printed beside the float32 plain version's and the per-pixel
+    body's (K8 over the same slots as a flat layout):
+      * the main path's tiles;
+      * every third tile empty and every third filled to K slots;
+      * 16 tiles led by six opaque surfels stacked half a pixel beside a
+        pixel's ray (T under T_EPS after the first chunk, alpha_raw >=
+        0.999 at that pixel), filled to K slots;
+      * one K-slot tile among empty ones."""
+    from splatloam_tpu_torch.geometry import se3
+    gen = np.random.default_rng(SEED + 2)
+    n_tiles, k_cap = tiles.lists.shape
+    n = scene[0].shape[0]
+    rays, pix = tiles.rays_t, tiles.pix_t
+    op_tiles = (torch.arange(16, device=dev) * (n_tiles // 16)
+                + n_tiles // 32)
+    depth = 1.0 + 0.05 * torch.arange(6, device=dev, dtype=torch.float32)
+    ray = rays[op_tiles, 8]                                    # [16, 3]
+    side = torch.linalg.cross(ray, torch.tensor([0.0, 0.0, 1.0],
+                                                device=dev).expand_as(ray))
+    side = side / torch.linalg.norm(side, dim=-1, keepdim=True)
+    xyz = ((ray[:, None] + np.pi / W * side[:, None])
+           * depth[None, :, None]).reshape(-1, 3)
+    extra = (xyz, torch.full((96, 2), 4.0, device=dev),
+             se3.quat_from_normal(-ray.repeat_interleave(6, 0)),
+             torch.full((96,), 0.99999, device=dev))
+    F = binning.pack_features(common.pack_surfels(
+        *(torch.cat([a, b]) for a, b in zip(scene[:4], extra)),
+        *scene[4:])).contiguous()
+    pad = F.shape[0] - 1
+    base = torch.where(tiles.lists == n, pad, tiles.lists)
+    fill = torch.tensor(gen.integers(0, n, (n_tiles, k_cap)),
+                        dtype=torch.int32, device=dev)
+    real = (torch.arange(k_cap, device=dev)[None, :]
+            < tiles.counts[:, None])
+    full = torch.where(real, base, fill)
+    third = torch.arange(n_tiles, device=dev) % 3
+    stack = full.clone()
+    stack[op_tiles, :6] = (n + torch.arange(96, device=dev, dtype=torch.int32)
+                           ).reshape(16, 6)
+    stacked = torch.zeros(n_tiles, dtype=torch.bool, device=dev)
+    stacked[op_tiles] = True
+    kfull = torch.full_like(tiles.counts, k_cap)
+    zero = torch.zeros_like(tiles.counts)
+    lone = zero.clone()
+    lone[n_tiles // 2] = k_cap
+    cases = [("main tiles", base, tiles.counts),
+             ("counts 0 and K", torch.where((third == 1)[:, None], full,
+                                            base),
+              torch.where(third == 0, zero,
+                          torch.where(third == 1, kfull, tiles.counts))),
+             ("opaque stacks", torch.where(stacked[:, None], stack, base),
+              torch.where(stacked, kfull, tiles.counts)),
+             ("one K-slot tile among empty ones", full, lone)]
+    for name, lists, counts in cases:
+        lists = torch.where(torch.arange(k_cap, device=dev)[None, :]
+                            < counts[:, None], lists, pad).contiguous()
+        counts = counts.contiguous()
+        for dist in (False, True):
+            g = torch.tensor(gen.normal(size=(n_tiles, rays.shape[1], 8))
+                             .astype(np.float32), device=dev)
+            tb = hold_bwd_to_float64(f"[adversarial] K2 {name}", kernels,
+                                     common, (F, lists, counts, rays, pix), g,
+                                     chunk, dist)
+            if name == "opaque stacks":
+                dead = float(tb[op_tiles][:, :, 1:].max())
+                print(f"[adversarial] K2 opaque stacks, with_dist {dist}: "
+                      f"the stacked tiles' later chunk-start T {dead:.1e}",
+                      flush=True)
+                if not dead <= common.T_EPS:
+                    fail("the opaque stacks left a later chunk live")
+
+
+def float64_ties(kernels, common, bargs, chunk):
+    """[T, K] bool: the live slots holding a (pixel, slot) pair whose
+    branch of the splat geometry comes out one way in the float32 plain
+    version and the other in float64: the min of the screen filter and
+    the ellipse, the alpha cut (1/255, the near plane) or the clamp at
+    0.999.  At such a tie the two precisions differentiate two different
+    functions (the filter's and the ellipse's gradients differ in kind),
+    and the tie reaches every earlier slot of that pixel through the
+    suffix sums.  Also returns the number of tied pairs of each kind."""
+    F, lists, counts, rays, pix, tb = bargs[:6]
+    n_live = kernels._live_chunks(counts, tb, chunk)
+    tie = torch.zeros(lists.shape, dtype=torch.bool, device=lists.device)
+    kinds = dict(filter=0, cut=0, clamp=0)
+    for i in range(int(n_live.max()) if n_live.numel() else 0):
+        cols = slice(i * chunk, (i + 1) * chunk)
+        Fc = F[lists[:, cols].long()]
+        g32 = kernels._splat_geometry(Fc, rays, pix, W)
+        g64 = kernels._splat_geometry(Fc.double(), rays.double(),
+                                      pix.double(), W)
+        live = (i < n_live)[:, None, None]
+        flips = dict(filter=g32["use2"] != g64["use2"],
+                     cut=g32["ok"] != g64["ok"],
+                     clamp=((g32["alpha_raw"] < common.ALPHA_MAX)
+                            != (g64["alpha_raw"] < common.ALPHA_MAX)))
+        for k, f in flips.items():
+            f = f & live
+            kinds[k] += int(f.sum())
+            tie[:, cols] |= f.any(dim=1)
+    return tie, kinds
+
+
+def hold_bwd_to_float64(name, kernels, common, fwd_args, g, chunk: int,
+                        dist: bool):
+    """K2 against the plain version in float64, at 2e-3 * max|dFg64| (the
+    repo's gradient tolerance), on K1's forward of ``fwd_args`` (F, lists,
+    counts, rays, pix) and cotangents ``g``; the float32 plain version's
+    and the per-pixel body's (K8 over the same slots as a flat layout)
+    errors are printed beside.  Tiles holding a float32/float64 branch
+    tie (``float64_ties``) are held apart and printed; every other tile
+    must agree.  Where there are ties, the tied surfels are then moved
+    off them (0.01 px along the image's u, opacity times 0.999) and K2 is
+    held to float64 again on the new inputs.  Returns K1's tbound."""
+    F, lists, counts, rays, pix = fwd_args
+    n_tiles = lists.shape[0]
+    bkw = dict(chunk=chunk, width=W, with_dist=dist)
+
+    def forward_and_float64(F):
+        args = (F, lists, counts, rays, pix)
+        out, tb = kernels.raster_fwd(*args, chunk=chunk, width=W,
+                                     with_median=False, with_dist=dist)
+        bargs = (*args, tb, out, g)
+        d64 = kernels.raster_bwd_plain(
+            *(a.double() if a.is_floating_point() else a for a in bargs),
+            **bkw)
+        return bargs, d64, *float64_ties(kernels, common, bargs, chunk)
+
+    def max_err(d, d64, tiles):
+        return float((d - d64)[tiles].abs().max()) if bool(tiles.any()) \
+            else 0.0
+
+    bargs, d64, tie, kinds = forward_and_float64(F)
+    tb, out = bargs[5], bargs[6]
+    dFg = kernels.raster_bwd(*bargs, **bkw)
+    d32 = kernels.raster_bwd_plain(*bargs, **bkw)
+    ids, starts, tbf, pos, owned = flat_of_tiles(lists, counts, tb, chunk,
+                                                 F.shape[0] - 1)
+    rows8 = kernels.raster_bwd_flat(F, ids, starts, rays, pix, tbf, out, g,
+                                    **bkw)
+    d8 = torch.zeros_like(dFg)
+    d8[owned] = rows8[pos[owned].long()]
+    torch.cuda.synchronize()
+    tied = tie.any(dim=1)
+    peak = float(d64.abs().max())
+    tol = 2e-3 * peak
+    e = [max_err(d, d64, ~tied) for d in (dFg, d32, d8)]
+    msg = (f"{name}, with_dist {dist}: max_abs_err vs float64 plain "
+           f"{e[0]:.3e} (tol {tol:.3e}, max|dFg| {peak:.1f}); float32 plain "
+           f"{e[1]:.3e}, per-pixel body (K8) {e[2]:.3e}; over "
+           f"{n_tiles - int(tied.sum())} of {n_tiles} tiles")
+    if bool(tied.any()):
+        et = [max_err(d, d64, tied) for d in (dFg, d32, d8)]
+        msg += (f"; held apart, {int(tied.sum())} tiles with float32/float64 "
+                f"branch ties (pairs {kinds}): kernel {et[0]:.3e}, float32 "
+                f"plain {et[1]:.3e}, K8 {et[2]:.3e}")
+    print(msg, flush=True)
+    if not e[0] <= tol:
+        fail(f"{name}, with_dist {dist}: {e[0]} > {tol}")
+    if bool(tied.any()):
+        ids_tied = lists[tie].long().unique()
+        Fn = F.clone()
+        Fn[ids_tied, 14] += 0.01
+        Fn[ids_tied, 12] *= 0.999
+        bargs_n, d64_n, tie_n, kinds_n = forward_and_float64(Fn)
+        d_n = kernels.raster_bwd(*bargs_n, **bkw)
+        torch.cuda.synchronize()
+        keep_n = ~tie_n.any(dim=1)
+        tol_n = 2e-3 * float(d64_n.abs().max())
+        err_n = max_err(d_n, d64_n, keep_n)
+        print(f"{name}, with_dist {dist}, the {ids_tied.numel()} tied "
+              f"surfels moved off their ties: max_abs_err vs float64 plain "
+              f"{err_n:.3e} (tol {tol_n:.3e}) over {int(keep_n.sum())} of "
+              f"{n_tiles} tiles, ties left {kinds_n}", flush=True)
+        if not err_n <= tol_n:
+            fail(f"{name}, with_dist {dist}, ties moved: {err_n} > {tol_n}")
+    return tb
 
 
 def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
@@ -1232,9 +1470,17 @@ def main() -> int:
     print(f"[build] {len(secs)} sources in {time.perf_counter() - t0:.1f} s "
           f"{ {k: round(v, 1) for k, v in secs.items()} }", flush=True)
     rng = np.random.default_rng(SEED)
+    t1 = time.perf_counter()
     results = check_kernels(dev, rng)
+    t2 = time.perf_counter()
     check_render_parity(dev, rng)
+    t3 = time.perf_counter()
     launches = run_slice(dev, rng)
+    t4 = time.perf_counter()
+    # the host-bound phases 2 and 3 follow the host's pace, which differs
+    # between machines
+    print(f"[time] build {t1 - t0:.1f} s, phase 1 {t2 - t1:.1f} s, phase 2 "
+          f"{t3 - t2:.1f} s, phase 3 {t4 - t3:.1f} s", flush=True)
 
     line = []
     for name, k in kernels.KERNELS.items():

@@ -1,7 +1,8 @@
-// The rasterizer's backward pass, shared by K2 (raster_bwd.cu: per-slot
-// gradient rows), K5 (raster_bwd_fused.cu: the same rows accumulated into
-// the surfel pool inside the kernel) and K8 (raster_bwd_flat.cu: K2 over
-// the flat compacted slot pool).
+// The rasterizer's backward pass per pixel, shared by K5
+// (raster_bwd_fused.cu: K2's rows accumulated into the surfel pool inside
+// the kernel) and K8 (raster_bwd_flat.cu: K2 over the flat compacted slot
+// pool).  K2 itself (raster_bwd.cu) has a slot-parallel body of its own;
+// the two compute the same rows, so each holds the other on the card.
 //
 // Per tile, replay the live chunks (those the forward ran: chunk-start T
 // above 1e-4 for some pixel, within the tile's slots) in reverse with O(P)
@@ -22,10 +23,6 @@
 // backwards.  Every slot's 16 per-pixel terms are reduced over a warp with
 // shuffles and over the block's warps through shared memory.
 //
-// FUSED = false, FLAT = false (K2): the block owns its tile's rows of dFg
-// [T, K, 16] and stores them plainly; rows of slots the forward did not
-// composite (dead chunks, padding slots) are written as zeros, because K3
-// sums every slot.
 // FUSED = true (K5): each composited slot's row is added with float atomics
 // into dF[lists[t, j]] of the zeroed pool dF [N+1, 16]; dead chunks and
 // padding slots add nothing, and dFg never reaches device memory.
@@ -68,7 +65,7 @@ __global__ void raster_bwd_kernel(
   const int count = ts.count;
   const int n_act = (count + C - 1) / C;
   const size_t px_idx = (size_t)t * P + p;
-  // chunk i's start T: K2/K5 [T, P, K/C]; K8 [NC, P], chunk0 + i
+  // chunk i's start T: K5 [T, P, K/C]; K8 [NC, P], chunk0 + i
   const int nc = L.slots_per_view / C;
   const float* tb =
       FLAT ? tbound + (ts.slot0 / C) * P + p : tbound + px_idx * nc;
@@ -77,15 +74,8 @@ __global__ void raster_bwd_kernel(
   for (int i = 0; i < n_act; ++i)
     n_live += __syncthreads_or(tb[i * tb_step] > T_EPS) ? 1 : 0;
 
-  // K2/K8: this tile's rows; K5: the pool
+  // K8: this tile's rows; K5: the pool
   float* rows = FUSED ? dst : dst + ts.slot0 * 16;
-  if (!FUSED && !FLAT) {
-    // rows of chunks the forward skipped, and of padding slots past count
-    const int K = L.slots_per_view;
-    const int first_zero = n_live > 0 ? min(count, n_live * C) : 0;
-    for (int idx = first_zero * 16 + p; idx < K * 16; idx += P)
-      rows[idx] = 0.0f;
-  }
   if (n_live == 0) return;
 
   const float rx = rays[px_idx * 3 + 0];
@@ -215,6 +205,12 @@ __global__ void raster_bwd_kernel(
   }
 }
 
+inline size_t raster_bwd_smem(int C, int P) {
+  return (size_t)(C * FS + (C / BWD_SUB) * P + BWD_SUB * P +
+                  BWD_SUB * (P / 32) * 16) *
+         sizeof(float);
+}
+
 // Launch over n_tiles blocks of P threads; returns the CUDA error code.
 template <bool FUSED, bool FLAT>
 int launch_raster_bwd_impl(const float* F, SlotLayout L, const float* rays,
@@ -223,9 +219,7 @@ int launch_raster_bwd_impl(const float* F, SlotLayout L, const float* rays,
                            int n_tiles, int C, int P, float width,
                            float inv_width, int with_dist,
                            cudaStream_t stream) {
-  const size_t smem = (size_t)(C * FS + (C / BWD_SUB) * P + BWD_SUB * P +
-                               BWD_SUB * (P / 32) * 16) *
-                      sizeof(float);
+  const size_t smem = raster_bwd_smem(C, P);
   cudaError_t err = cudaFuncSetAttribute(
       raster_bwd_kernel<FUSED, FLAT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -235,6 +229,21 @@ int launch_raster_bwd_impl(const float* F, SlotLayout L, const float* rays,
   raster_bwd_kernel<FUSED, FLAT><<<n_tiles, P, smem, stream>>>(
       F, L, rays, pix, tbound, outs, g, dst, C, width, inv_width, with_dist);
   return (int)cudaGetLastError();
+}
+
+// Resident warps per SM of a P-thread block at chunk C, or minus the CUDA
+// error code.
+template <bool FUSED, bool FLAT>
+int raster_bwd_resident_warps(int C, int P) {
+  const size_t smem = raster_bwd_smem(C, P);
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      raster_bwd_kernel<FUSED, FLAT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, raster_bwd_kernel<FUSED, FLAT>, P, smem);
+  return err != cudaSuccess ? -(int)err : blocks * (P / 32);
 }
 
 }  // namespace splat

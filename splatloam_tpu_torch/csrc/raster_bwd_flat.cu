@@ -16,9 +16,9 @@
 //
 // Design: raster_bwd.cuh with FLAT = true: one block per (view, tile),
 // walking the tile's live chunks in reverse inside the block with the
-// suffix carries in registers; K2's sub-chunk T_i rebuild and block
-// reduction.  The wrapper zeroes the rows, so the kernel writes only the
-// rows of the chunks it replays.
+// suffix carries in registers; the per-pixel sub-chunk T_i rebuild and
+// block reduction that K2 had before its redesign.  The wrapper zeroes
+// the rows, so the kernel writes only the rows of the chunks it replays.
 #include "raster_bwd.cuh"
 
 extern "C" int launch_raster_bwd_flat(const float* F, const int* ids,

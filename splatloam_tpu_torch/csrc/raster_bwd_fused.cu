@@ -13,7 +13,8 @@
 // pair); the bytes are K2's inputs plus one 64-byte atomic row per
 // composited slot and the touched pool rows.
 //
-// Design: raster_bwd.cuh with FUSED = true.  The TPU kernel's serial RMW
+// Design: raster_bwd.cuh with FUSED = true (the per-pixel body K2 had
+// before its slot-parallel redesign).  The TPU kernel's serial RMW
 // over a pool that stays in VMEM for the whole grid has no counterpart:
 // blocks run in parallel on 132 SMs, so after each 32-slot sub-chunk's
 // block reduction the 16 sums of each slot go out as float atomics, one
@@ -32,4 +33,12 @@ extern "C" int launch_raster_bwd_fused(const float* F, const int* lists,
   return splat::launch_raster_bwd_impl<true, false>(
       F, L, rays, pix, tbound, outs, g, dF, n_tiles, C, P, width,
       inv_width, with_dist, stream);
+}
+
+// Resident warps per SM of the per-pixel body at these shapes, or minus
+// the CUDA error code.
+extern "C" int launch_raster_bwd_fused_resident_warps(int P, int C,
+                                                      int with_dist) {
+  (void)with_dist;
+  return splat::raster_bwd_resident_warps<true, false>(C, P);
 }

@@ -348,9 +348,7 @@ def _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, outs, g,
     tps = max(1, static.scatter_tps)
     while lists.shape[0] % tps:
         tps //= 2
-    if tps > 1:
-        return kernels.scatter_rows_tps(dFg, lists, counts, n_rows, tps)
-    return kernels.scatter_rows(dFg, lists, counts, n_rows)
+    return kernels.scatter_rows_tps(dFg, lists, counts, n_rows, tps)
 
 
 class _RasterCore(torch.autograd.Function):

@@ -54,8 +54,8 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "splatloam_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-# the backward kernel's block is one thread per tile pixel, and its
-# sub-chunk of slots is one warp-reduction row set
+# the per-pixel bodies take one thread per tile pixel, and every backward
+# body walks slots in 32-slot sub-chunks (K5, K8) or segments (K2)
 MAX_TILE_PIXELS = 256
 SUB = 32
 MAX_CHUNK = 1024
@@ -114,8 +114,8 @@ KERNELS = {
         "K9_scatter_rows_flat", "scatter_rows_flat.cu",
         "launch_scatter_rows_flat", (_P,) * 3 + (_I, _P), f"{_TPU}:1272"),
     "K10_scatter_rows_tps": Kernel(
-        "K10_scatter_rows_tps", "scatter_rows.cu", "launch_scatter_rows_tps",
-        (_P,) * 4 + (_I,) * 3 + (_P,), f"{_TPU}:511"),
+        "K10_scatter_rows_tps", "scatter_rows.cu", "launch_scatter_rows",
+        (_P,) * 4 + (_I, _I, _P), f"{_TPU}:511"),
 }
 
 
@@ -180,6 +180,23 @@ def build_all() -> dict[str, float]:
             fn.restype = ctypes.c_int
             k._fn = fn
     return seconds
+
+
+def resident_warps(name: str, p_tile: int, chunk: int,
+                   with_dist: bool) -> int:
+    """Resident warps per SM of backward kernel ``name`` ("K2_bwd" or
+    "K5_bwd_fused") at these shapes, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    k = KERNELS[name]
+    k.fn()
+    fn = getattr(ctypes.CDLL(str(_library_path(k.source))),
+                 f"{k.symbol}_resident_warps")
+    fn.argtypes = [_I, _I, _I]
+    fn.restype = ctypes.c_int
+    n = fn(p_tile, chunk, int(with_dist))
+    if n < 0:
+        raise RuntimeError(f"{name}: CUDA error {-n} in the occupancy query")
+    return n
 
 
 def _launch(name: str, *args) -> None:
@@ -372,6 +389,55 @@ def raster_fwd(F, lists, counts, rays, pix, *, chunk: int, width: int,
 # K2: backward
 # ---------------------------------------------------------------------------
 
+def _bwd_rows(geo, rays, gN, Ti, w, phi, S_phi, gm):
+    """A chunk's gradient rows [T, 16, C] summed over the pixels, from the
+    per-pair [T, P, C] T_i, w, phi, strict-suffix sum of w*phi and the
+    depth cotangent gm (the TPU kernel's arithmetic)."""
+    alpha = geo["alpha"]
+    one_m_a = torch.clamp(1.0 - alpha, min=1e-3)
+    galpha = torch.where(alpha > 0, Ti * phi - S_phi / one_m_a, 0.0)
+    live_px = geo["ok"] & (geo["alpha_raw"] < ALPHA_MAX)
+    g_opa = torch.where(live_px, galpha * geo["g_exp"], 0.0)
+    g_rho = torch.where(live_px, galpha * (-0.5) * geo["alpha_raw"], 0.0)
+    use2 = geo["use2"]
+    u3 = ~use2
+    g_u = torch.where(u3, g_rho * 2.0 * geo["uu"], 0.0)
+    g_v = torch.where(u3, g_rho * 2.0 * geo["vv"], 0.0)
+    g_t = g_u * geo["A1"] + g_v * geo["A2"] + torch.where(u3, gm, 0.0)
+    g_np = g_t / geo["A3"]
+    g_A3 = -g_t * geo["tstar"] / geo["A3"]
+    g_A1 = g_u * geo["tstar"]
+    g_A2 = g_v * geo["tstar"]
+    g_dx = torch.where(use2, g_rho * 2.0 * FILTER_INV_SQUARE * geo["dx"], 0.0)
+    g_dy = torch.where(use2, g_rho * 2.0 * FILTER_INV_SQUARE * geo["dy"], 0.0)
+
+    def sum_px(x):                                 # [T, P, C] -> [T, 1, C]
+        return x.sum(dim=1, keepdim=True)
+
+    def dot_rays(x):                               # -> [T, 3, C]
+        return torch.einsum("tpk,tpc->tkc", rays, x)
+
+    s_g_np, s_g_u, s_g_v = sum_px(g_np), sum_px(g_u), sum_px(g_v)
+    d_gu = dot_rays(g_A1) - s_g_u * geo["p3"]
+    d_gv = dot_rays(g_A2) - s_g_v * geo["p3"]
+    d_n = (dot_rays(g_A3) + s_g_np * geo["p3"]
+           + torch.einsum("tpk,tpc->tkc", gN, w))
+    d_p = s_g_np * geo["n3"] - s_g_u * geo["gu3"] - s_g_v * geo["gv3"]
+    return torch.cat([d_p, d_gu, d_gv, d_n, sum_px(g_opa),
+                      sum_px(torch.where(use2, gm, 0.0)),
+                      sum_px(-g_dx), sum_px(-g_dy)], dim=1)
+
+
+def _live_chunks(counts, tbound, chunk):
+    """[T] number of chunks the forward composited: within the count and
+    chunk-start T > T_EPS for some pixel (a prefix of the chunks)."""
+    n_chunks = tbound.shape[2]
+    col = torch.arange(n_chunks, device=tbound.device)
+    live = ((col[None, :] < _n_active_chunks(counts, chunk)[:, None])
+            & (tbound.amax(dim=1) > T_EPS))
+    return live.sum(dim=1)
+
+
 def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
                      chunk: int, width: int, with_dist: bool):
     """Plain version of K2: reverse loop over each tile's live chunks
@@ -379,10 +445,7 @@ def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
     O(P) suffix carries; closed-form in-chunk prefix/suffix sums."""
     n_tiles, k_cap = lists.shape
     n_chunks = k_cap // chunk
-    n_act = _n_active_chunks(counts, chunk)
-    col = torch.arange(n_chunks, device=F.device)
-    live = (col[None, :] < n_act[:, None]) & (tbound.amax(dim=1) > T_EPS)
-    n_live = live.sum(dim=1)                                   # [T]
+    n_live = _live_chunks(counts, tbound, chunk)               # [T]
     gD, gA, gN, gdist = g[..., 0:1], g[..., 1:2], g[..., 2:5], g[..., 6:7]
     A_total, D_total = outs[..., 1:2], outs[..., 0:1]
     S_phi_c = torch.zeros_like(gD)
@@ -410,43 +473,10 @@ def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
             D_prev = D_total - wm - MD_suf
             phi = phi + gdist * (m * A_prev - D_prev + MD_suf - m * W_suf)
         S_phi = _strict_suffix_sum(w * phi) + S_phi_c
-        one_m_a = torch.clamp(1.0 - alpha, min=1e-3)
-        galpha = torch.where(alpha > 0, Ti * phi - S_phi / one_m_a, 0.0)
         gm = w * gD
         if with_dist:
             gm = gm + w * gdist * (A_prev - W_suf)
-        live_px = geo["ok"] & (geo["alpha_raw"] < ALPHA_MAX)
-        g_opa = torch.where(live_px, galpha * geo["g_exp"], 0.0)
-        g_rho = torch.where(live_px, galpha * (-0.5) * geo["alpha_raw"], 0.0)
-        use2 = geo["use2"]
-        u3 = ~use2
-        g_u = torch.where(u3, g_rho * 2.0 * geo["uu"], 0.0)
-        g_v = torch.where(u3, g_rho * 2.0 * geo["vv"], 0.0)
-        g_t = g_u * geo["A1"] + g_v * geo["A2"] + torch.where(u3, gm, 0.0)
-        g_np = g_t / geo["A3"]
-        g_A3 = -g_t * geo["tstar"] / geo["A3"]
-        g_A1 = g_u * geo["tstar"]
-        g_A2 = g_v * geo["tstar"]
-        g_dx = torch.where(use2, g_rho * 2.0 * FILTER_INV_SQUARE * geo["dx"],
-                           0.0)
-        g_dy = torch.where(use2, g_rho * 2.0 * FILTER_INV_SQUARE * geo["dy"],
-                           0.0)
-
-        def sum_px(x):                                 # [T, P, C] -> [T, 1, C]
-            return x.sum(dim=1, keepdim=True)
-
-        def dot_rays(x):                               # -> [T, 3, C]
-            return torch.einsum("tpk,tpc->tkc", rays, x)
-
-        s_g_np, s_g_u, s_g_v = sum_px(g_np), sum_px(g_u), sum_px(g_v)
-        d_gu = dot_rays(g_A1) - s_g_u * geo["p3"]
-        d_gv = dot_rays(g_A2) - s_g_v * geo["p3"]
-        d_n = (dot_rays(g_A3) + s_g_np * geo["p3"]
-               + torch.einsum("tpk,tpc->tkc", gN, w))
-        d_p = s_g_np * n3 - s_g_u * geo["gu3"] - s_g_v * geo["gv3"]
-        dF = torch.cat([d_p, d_gu, d_gv, d_n, sum_px(g_opa),
-                        sum_px(torch.where(use2, gm, 0.0)),
-                        sum_px(-g_dx), sum_px(-g_dy)], dim=1)  # [T, 16, C]
+        dF = _bwd_rows(geo, rays, gN, Ti, w, phi, S_phi, gm)
         dFg[:, i * chunk:(i + 1) * chunk] = torch.where(
             a1, dF.transpose(1, 2), 0.0)
         S_phi_c = torch.where(a1, S_phi_c + torch.sum(w * phi, -1, True),
@@ -531,17 +561,7 @@ def scatter_rows_plain(dFg, lists, counts, n_rows: int):
 
 def scatter_rows(dFg, lists, counts, n_rows: int):
     """K4: dFg [T, K, 16] -> dF [n_rows, 16] by surfel id."""
-    if not _on_cuda(dFg):
-        return scatter_rows_plain(dFg, lists, counts, n_rows)
-    dev = dFg.device
-    n_tiles, k_cap = lists.shape
-    _check("dFg", dFg, torch.float32, (n_tiles, k_cap, 16), dev)
-    _check("lists", lists, torch.int32, (n_tiles, k_cap), dev)
-    _check("counts", counts, torch.int32, (n_tiles,), dev)
-    dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
-    _launch("K4_scatter_rows", dFg.data_ptr(), lists.data_ptr(),
-            counts.data_ptr(), dF.data_ptr(), n_tiles, k_cap, _stream(dFg))
-    return dF
+    return scatter_rows_tps(dFg, lists, counts, n_rows, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -607,13 +627,14 @@ def scatter_overflow(rows, slots, ids, n_ov, n_rows: int):
 
 
 # ---------------------------------------------------------------------------
-# K10: K4's sums with the blocks grouped ``tps`` tiles to a grid row
+# K4 at scatter_tps > 1: K10
 # ---------------------------------------------------------------------------
 
 def scatter_rows_tps(dFg, lists, counts, n_rows: int, tps: int):
-    """K10: K4's sums, dFg [T, K, 16] -> dF [n_rows, 16], with vector
-    loads and atomics and the grid's rows covering ``tps`` consecutive
-    tiles each (tps must divide T).  Its plain version is K4's."""
+    """K4's sums under RenderParams.scatter_tps (tps must divide T), dFg
+    [T, K, 16] -> dF [n_rows, 16]: one kernel launch, counted as K4 at
+    tps 1 and as K10 above (the TPU's tiles per grid step have no
+    counterpart on the card).  Its plain version is K4's."""
     n_tiles, k_cap = lists.shape
     if tps < 1 or n_tiles % tps:
         raise ValueError(f"tps {tps} must divide the tile count {n_tiles}")
@@ -624,9 +645,9 @@ def scatter_rows_tps(dFg, lists, counts, n_rows: int, tps: int):
     _check("lists", lists, torch.int32, (n_tiles, k_cap), dev)
     _check("counts", counts, torch.int32, (n_tiles,), dev)
     dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
-    _launch("K10_scatter_rows_tps", dFg.data_ptr(), lists.data_ptr(),
-            counts.data_ptr(), dF.data_ptr(), n_tiles, k_cap, tps,
-            _stream(dFg))
+    _launch("K4_scatter_rows" if tps == 1 else "K10_scatter_rows_tps",
+            dFg.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+            dF.data_ptr(), n_tiles, k_cap, _stream(dFg))
     return dF
 
 

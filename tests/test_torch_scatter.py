@@ -12,6 +12,10 @@ package on the CPU, on skewed and adversarial inputs made with numpy.
     with identity slots.
   * K10 against JAX ``pallas_raster._scatter_rows`` for tps in
     {1, 2, 8, T}, with tiles whose counts are 0 and K.
+  * K4 (``kernels.scatter_rows``, K10's kernel launch at tps 1) against
+    JAX ``_scatter_rows`` at tps 1, on those tiles and on lists where one
+    surfel sits in every tile, and against numpy over 70,000 tiles (more
+    than a CUDA grid's 65,535 rows).
 
 The JAX side runs its Pallas kernels in interpret mode; on CPU tensors the
 port's wrappers run their plain versions.  Tolerance 1e-5 * max(1, max|dF|)
@@ -189,9 +193,47 @@ def test_scatter_rows_tps_vs_pallas(rng, tps):
     assert np.abs(np.asarray(ref)[:-1]).max() > 0
 
 
+@pytest.mark.parametrize("lists_of", ["counts 0 to K", "one surfel in all"])
+def test_scatter_rows_vs_pallas(rng, lists_of):
+    """K4 against JAX ``_scatter_rows(..., tps=1)`` (rows [:-1], as
+    above); the hot surfel's row sums one row of every tile."""
+    if lists_of == "counts 0 to K":
+        n = 60
+        lists, counts = _tile_lists(rng, n=n)
+    else:
+        n = 300
+        lists = _hot_lists(rng, n_tiles=256, n=n)
+        counts = (lists != n).sum(axis=1).astype(np.int32)
+    dFg = rng.normal(size=(*lists.shape, 16)).astype(np.float32)
+    ref = np.asarray(pallas_raster._scatter_rows(
+        jnp.asarray(dFg), jnp.asarray(lists.reshape(-1)),
+        jnp.asarray(counts), n + 1, 1))
+    dF = kernels.scatter_rows(torch.tensor(dFg), torch.tensor(lists),
+                              torch.tensor(counts), n + 1)
+    _assert_sums(dF[:-1], ref[:-1])
+    assert np.abs(ref[:-1]).max() > 0
+
+
 def test_scatter_rows_tps_needs_a_divisor(rng):
     lists, counts = _tile_lists(rng)
     dFg = torch.zeros((*lists.shape, 16))
     with pytest.raises(ValueError, match="must divide"):
         kernels.scatter_rows_tps(dFg, torch.tensor(lists),
                                  torch.tensor(counts), 61, 3)
+
+
+def test_scatter_rows_many_tiles(rng):
+    """K4 over 70,000 tiles of 4 slots, counts 0 to K, against numpy's
+    ``np.add.at`` (JAX's interpret mode walks its grid in Python, too slow
+    at this size)."""
+    n_tiles, k, n = 70_000, 4, 500
+    counts = rng.integers(0, k + 1, n_tiles).astype(np.int32)
+    lists = rng.integers(0, n, (n_tiles, k)).astype(np.int32)
+    real = np.arange(k)[None, :] < counts[:, None]
+    lists[~real] = n
+    dFg = rng.normal(size=(n_tiles, k, 16)).astype(np.float32)
+    ref = np.zeros((n + 1, 16))
+    np.add.at(ref, lists[real], dFg[real])
+    dF = kernels.scatter_rows(torch.tensor(dFg), torch.tensor(lists),
+                              torch.tensor(counts), n + 1)
+    _assert_sums(dF, ref)
