@@ -9,8 +9,10 @@
 // alpha is capped at 0.999.  Only the slots the forward composited
 // contribute (live chunks, whose chunk-start T exceeds 1e-4 for some
 // pixel, and slots below the tile's count); rows of every other slot are
-// zeros, because K3 sums every slot.  The reduction to per-surfel rows
-// follows in K3, K4 or the occurrence plan (+ K6).
+// zeros.  The reductions read the rows of real slots only (K3 skips the
+// padding id's entries), so the zeros past each tile's count are written
+// for nothing.  The reduction to per-surfel rows follows in K3, K4 or the
+// occurrence plan (+ K6).
 //
 // Bound on the H100: operations (the geometry once and the gradient
 // algebra per composited pixel-slot pair, and the 16-value row sums).

@@ -302,9 +302,12 @@ def _reduce_rows_with_ranksum(rows_all, plan: RanksumPlan, n_plus1: int):
     """rows_all [R, 16] per-slot gradient rows -> dF [N+1, 16] through the
     id-sorted rank plan: K3 sums into a dense rank accumulator, then each
     id reads its rank row (absent ids read the zero dummy row); a
-    truncated plan adds its spilled real entries through K6."""
+    truncated plan adds its spilled real entries through K6.  Row N, the
+    padding id's, comes out 0: F's pad row is a constant, so nothing
+    reads its gradient, and K3 skips its entries."""
     r_alloc = binning._ranksum_alloc(n_plus1, RS_GROUP)
-    dFc = kernels.ranksum_rows(rows_all, plan.pos, plan.ranks, r_alloc)
+    dFc = kernels.ranksum_rows(rows_all, plan.pos, plan.ranks,
+                               plan.rank_of_id[n_plus1 - 1:], r_alloc)
     dF = dFc[plan.rank_of_id.long()]
     if plan.ov_slots is None:
         return dF

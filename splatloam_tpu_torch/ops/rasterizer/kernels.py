@@ -54,8 +54,9 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "splatloam_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-# the per-pixel bodies take one thread per tile pixel, and every backward
-# body walks slots in 32-slot sub-chunks (K5, K8) or segments (K2)
+# the per-pixel bodies (K5, K7, K8) take one thread per tile pixel, and
+# every body walks slots in 32-slot segments (K1, K2) or sub-chunks (K5,
+# K8) or stages them a chunk at a time (K7)
 MAX_TILE_PIXELS = 256
 SUB = 32
 MAX_CHUNK = 1024
@@ -91,7 +92,7 @@ KERNELS = {
         f"{_TPU}:267"),
     "K3_ranksum": Kernel(
         "K3_ranksum", "ranksum.cu", "launch_ranksum_rows",
-        (_P,) * 4 + (_I, _P), f"{_TPU}:728"),
+        (_P,) * 5 + (_I, _P), f"{_TPU}:728"),
     "K4_scatter_rows": Kernel(
         "K4_scatter_rows", "scatter_rows.cu", "launch_scatter_rows",
         (_P,) * 4 + (_I, _I, _P), f"{_TPU}:478"),
@@ -182,18 +183,21 @@ def build_all() -> dict[str, float]:
     return seconds
 
 
-def resident_warps(name: str, p_tile: int, chunk: int,
-                   with_dist: bool) -> int:
-    """Resident warps per SM of backward kernel ``name`` ("K2_bwd" or
-    "K5_bwd_fused") at these shapes, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+def resident_warps(name: str, p_tile: int, chunk: int, with_dist: bool,
+                   with_median: bool = False) -> int:
+    """Resident warps per SM of kernel ``name`` (a forward, "K1_fwd" or
+    "K7_fwd_flat", or a backward, "K2_bwd" or "K5_bwd_fused") at these
+    shapes, from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     k = KERNELS[name]
     k.fn()
     fn = getattr(ctypes.CDLL(str(_library_path(k.source))),
                  f"{k.symbol}_resident_warps")
-    fn.argtypes = [_I, _I, _I]
+    args = (p_tile, chunk, int(with_dist))
+    if name in ("K1_fwd", "K7_fwd_flat"):
+        args = (p_tile, chunk, int(with_median), int(with_dist))
+    fn.argtypes = [_I] * len(args)
     fn.restype = ctypes.c_int
-    n = fn(p_tile, chunk, int(with_dist))
+    n = fn(*args)
     if n < 0:
         raise RuntimeError(f"{name}: CUDA error {-n} in the occupancy query")
     return n
@@ -522,28 +526,34 @@ def raster_bwd(F, lists, counts, rays, pix, tbound, outs, g, *,
 # K3: segmented sum of id-sorted rows into rank rows
 # ---------------------------------------------------------------------------
 
-def ranksum_rows_plain(rows, pos, ranks, n_rows: int):
-    """Plain version of K3: dFc[ranks[e]] += rows[pos[e]] for ranks >= 0."""
-    real = ranks >= 0
+def ranksum_rows_plain(rows, pos, ranks, pad_rank, n_rows: int):
+    """Plain version of K3: dFc[ranks[e]] += rows[pos[e]] for the entries
+    whose rank is >= 0 and not ``pad_rank``."""
+    real = (ranks >= 0) & (ranks != pad_rank)
     dFc = rows.new_zeros((n_rows, 16))
     return dFc.index_add_(0, ranks[real].long(), rows[pos[real].long()])
 
 
-def ranksum_rows(rows, pos, ranks, n_rows: int):
+def ranksum_rows(rows, pos, ranks, pad_rank, n_rows: int):
     """K3: rows [R, 16] (any slot layout), pos [E] int32 slot of each
     id-sorted entry, ranks [E] int32 dense ranks, non-decreasing up to a
-    tail of -1 pads -> dFc [n_rows, 16], row r = sum of the rows whose id
-    has rank r."""
+    tail of -1 pads, pad_rank [1] int32 the padding id's rank
+    (``rank_of_id[N:]`` of the plan, read on the device) -> dFc
+    [n_rows, 16], row r = sum of the rows whose id has rank r.  The
+    padding id's entries contribute nothing: its row, and every row no
+    entry has, is 0."""
     if not _on_cuda(rows):
-        return ranksum_rows_plain(rows, pos, ranks, n_rows)
+        return ranksum_rows_plain(rows, pos, ranks, pad_rank, n_rows)
     dev = rows.device
     n_entries = pos.shape[0]
     _check("rows", rows, torch.float32, (rows.shape[0], 16), dev)
     _check("pos", pos, torch.int32, (n_entries,), dev)
     _check("ranks", ranks, torch.int32, (n_entries,), dev)
+    # one view's rank out of a [B, N+1] stack of plans: read as one int
+    _check("pad_rank", pad_rank, torch.int32, (1,), dev, align=4)
     dFc = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
     _launch("K3_ranksum", rows.data_ptr(), pos.data_ptr(), ranks.data_ptr(),
-            dFc.data_ptr(), n_entries, _stream(rows))
+            pad_rank.data_ptr(), dFc.data_ptr(), n_entries, _stream(rows))
     return dFc
 
 

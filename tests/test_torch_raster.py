@@ -157,11 +157,13 @@ def test_ranksum_plain_equals_scatter_plain(rng):
     dF4 = kernels.scatter_rows_plain(dFg, tiles.lists, tiles.counts, n_rows)
     r_alloc = binning._ranksum_alloc(n_rows, 128)
     dFc = kernels.ranksum_rows_plain(dFg.reshape(-1, 16), tiles.plan.pos,
-                                     tiles.plan.ranks, r_alloc)
+                                     tiles.plan.ranks,
+                                     tiles.plan.rank_of_id[n_rows - 1:],
+                                     r_alloc)
     dF3 = dFc[tiles.plan.rank_of_id.long()]
-    # the pad row N collects every padding slot under ranksum only
-    np.testing.assert_allclose(dF3[:-1].numpy(), dF4[:-1].numpy(),
-                               atol=1e-5)
+    # the pad row N included: neither reduction adds the padding slots
+    np.testing.assert_allclose(dF3.numpy(), dF4.numpy(), atol=1e-5)
+    assert float(dF3[-1].abs().max()) == 0.0
     assert float(dF4.abs().max()) > 0
 
 
