@@ -17,31 +17,39 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      and, for the reductions, one torch.index_add_; K1 runs with neither
      and with both of the median and the distortion term, each also held
      against the per-pixel body (K7 over the same slots), pixels whose
-     median is a float32/float64 tie at T = 0.5 held apart; K3 is also
-     timed on a plan whose padding-id entries are masked to rank -1
-     (``[confirm]``, with the plan's segment lengths); K5 is also held
-     against K2 + K4, K6 runs under the full-width occurrence plan (its
-     uncapped overflow count printed beside the cap) and under a
+     median is a float32/float64 tie at T = 0.5 held apart; K2, K5 and K8
+     (one slot-parallel body in three write modes) are also timed with
+     the distortion term, and K5 on the bucketed layout's two buckets;
+     K3 is also timed on a plan whose padding-id entries are masked to
+     rank -1 (``[confirm]``, with the plan's segment lengths); K5 is also
+     held against K2 + K4, K6 runs under the full-width occurrence plan
+     (its uncapped overflow count printed beside the cap) and under a
      truncated ranksum plan, each held against K4; K7 is held against K1
      and K8 + K9 against K2 + K4 under a flat budget that drops nothing,
-     K10 against K4; the default flat budget's drops are printed; then K6
-     and K10 on adversarial inputs (one surfel owning every overflow
-     entry, n_ov 0 and 1, shuffled ids; K10 at tps 1, 2, 8 and T), each
-     against its plain version and K4, K4 over 70,000 tiles, K1 on
-     adversarial tiles (counts 0 and K, opaque stacks, one full tile among
-     empty ones) as above, and K2 on the main path's tiles at both
-     geometries and on those adversarial tiles, with and without the
-     distortion term, against its plain version in float64 beside the
-     float32 plain version's and the per-pixel body's (K8) errors, tiles
+     K10 against K4; the default flat budget's drops are printed; every
+     reduction of K2's rows (K3 on the tiled and the bucketed plan, K4,
+     K10, the occurrence plan + K6, the truncated ranksum plan + K6) is
+     run again with the rows past each tile's count, which K2 leaves
+     unwritten, set to NaN, and must give the same result; then K6 and
+     K10 on adversarial inputs (one surfel owning every overflow entry,
+     n_ov 0 and 1, shuffled ids; K10 at tps 1, 2, 8 and T), each against
+     its plain version and K4, K4 over 70,000 tiles, K1 on adversarial
+     tiles (counts 0 and K, opaque stacks, one full tile among empty
+     ones) as above, and K2, K5 (its pool against the float64 rows
+     reduced by id) and K8 (over the same slots as a flat layout) on the
+     main path's tiles at both geometries and on those adversarial tiles,
+     with and without the distortion term, against the plain version in
+     float64, the float32 plain version's error printed beside, tiles
      with a float32/float64 branch tie held apart and then moved off the
-     tie and held again; the resident warps per SM of K1's and K2's
-     bodies and of the per-pixel bodies that K7, K5 and K8 keep are
-     printed for both geometries.  Kernel and index_add_ times are
-     device time from a CUDA graph replay (``time_ms``: the host launches
-     nothing while it runs), each reduction and its index_add_ with its
-     own zero fill of dF; the reductions also print their kernels' times
-     under torch.profiler and the earlier CUDA-event loop beside it; the
-     plain versions, which wait on the host, are timed by that loop;
+     tie and held again; the resident warps per SM of K1's and the
+     backward's slot-parallel bodies (K2, K5, K8) and of K7's per-pixel
+     body are printed for both geometries.  Kernel and index_add_ times
+     are device time from a CUDA graph replay (``time_ms``: the host
+     launches nothing while it runs), each reduction and its index_add_
+     with its own zero fill of dF; the reductions also print their
+     kernels' times under torch.profiler and the earlier CUDA-event loop
+     beside it; the plain versions, which wait on the host, are timed by
+     that loop;
   2. holds ``render`` on the cuda backend against the eager golden
      renderer (values, the median included, and gradients) on a reduced
      scene, the gradients of scatter "fused" and "plan" and of layouts
@@ -67,6 +75,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -253,12 +262,13 @@ def check_kernels(dev, rng) -> dict:
         args = (F, tiles.lists, tiles.counts, tiles.rays_t, tiles.pix_t)
 
         # the mapper's flags (no median, no distortion term) first, then
-        # the render API's (both); K2 runs on the first forward
-        for flags in (False, True):
-            fwd = check_fwd(f"K1_fwd[{label}]", kernels, args, params.chunk,
-                            flags, flags, timed=True)
-            if not flags:
-                out, tb, err1, ms1, pms1 = fwd
+        # the render API's (both); K2 runs on the first forward, and is
+        # timed with the distortion term on the second
+        out, tb, err1, ms1, pms1 = check_fwd(
+            f"K1_fwd[{label}]", kernels, args, params.chunk, False, False,
+            timed=True)
+        fwd_dist = check_fwd(f"K1_fwd[{label}]", kernels, args, params.chunk,
+                             True, True, timed=True)[:2]
 
         g = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32),
                          device=dev)
@@ -271,22 +281,26 @@ def check_kernels(dev, rng) -> dict:
         # a running product vs exp of a log-space prefix sum; galpha divides
         # a suffix sum by max(1 - alpha, 1e-3), which magnifies those
         # rounding differences up to 1000-fold: the repo's gradient
-        # tolerance, 2e-3 of the largest row entry
-        err2 = float((dFg - dFg_p).abs().max())
+        # tolerance, 2e-3 of the largest row entry.  K2 leaves the rows
+        # past each tile's count unwritten: the real slots are compared
+        real = (torch.arange(tiles.lists.shape[1], device=dev)[None, :]
+                < tiles.counts[:, None])
+        err2 = float((dFg - dFg_p)[real].abs().max())
         tol2 = 2e-3 * float(dFg_p.abs().max())
         for dist in (False, True):
-            hold_bwd_to_float64(f"[kernel] K2_bwd[{label}]", kernels, common,
-                                args, g, params.chunk, dist)
+            hold_bwd_to_float64(f"[kernel] {label}", kernels, common, args,
+                                g, params.chunk, dist)
         ms2 = time_ms(lambda: kernels.raster_bwd(*bargs, **bkw))
         pms2 = event_ms(lambda: kernels.raster_bwd_plain(*bargs, **bkw), 3)
         report(f"K2_bwd[{label}]", err2, tol2, ms2, pms2)
         p_tile = tiles.rays_t.shape[1]
-        warps = [kernels.resident_warps(k, p_tile, params.chunk, d)
-                 for d in (False, True) for k in ("K2_bwd", "K5_bwd_fused")]
+        names = ("K2_bwd", "K5_bwd_fused", "K8_bwd_flat")
+        warps = [[kernels.resident_warps(k, p_tile, params.chunk, d)
+                  for k in names] for d in (False, True)]
         print(f"[occupancy] {label} ({p_tile} px, chunk {params.chunk}): "
-              f"resident warps per SM, K2 slot-parallel body {warps[0]}, "
-              f"per-pixel body (K5, K8) {warps[1]}; with_dist: {warps[2]} "
-              f"and {warps[3]}", flush=True)
+              f"resident warps per SM of the backward's slot-parallel body, "
+              f"K2/K5/K8 {'/'.join(map(str, warps[0]))}; with_dist "
+              f"{'/'.join(map(str, warps[1]))}", flush=True)
         warps = [kernels.resident_warps(k, p_tile, params.chunk, f, f)
                  for f in (False, True) for k in ("K1_fwd", "K7_fwd_flat")]
         print(f"[occupancy] {label} ({p_tile} px, chunk {params.chunk}): "
@@ -301,7 +315,8 @@ def check_kernels(dev, rng) -> dict:
         slots = torch.minimum(tiles.counts.long(), n_live * params.chunk)
         pairs = float(slots.sum()) * tiles.rays_t.shape[1]
         b1, by1 = bound(nbytes(*args, out, tb), pairs * FWD_OPS_PER_PAIR)
-        b2, by2 = bound(nbytes(*args, tb, out, g, dFg),
+        # K2 writes the rows of the real slots
+        b2, by2 = bound(nbytes(*args, tb, out, g) + int(real.sum()) * 64,
                         pairs * BWD_OPS_PER_PAIR)
         results["K1_fwd"] = dict(max_abs_err=err1, ms=ms1, plain_ms=pms1,
                                  bound_ms=b1, bound_by=by1, library_ms=None)
@@ -361,8 +376,6 @@ def check_kernels(dev, rng) -> dict:
 
         pms4 = event_ms(lambda: kernels.scatter_rows_plain(
             dFg, tiles.lists, tiles.counts, n_rows))
-        real = (torch.arange(tiles.lists.shape[1], device=dev)[None, :]
-                < tiles.counts[:, None])
         ids_real = tiles.lists[real].long()
         rows_real = dFg[real]
         ms4, lib4 = yardstick(
@@ -387,6 +400,11 @@ def check_kernels(dev, rng) -> dict:
         results.update(check_flat_and_tps(
             kernels, cuda_raster, scene, params, tiles, F, (out, tb), g, dFg,
             dF4, pairs, results["K4_scatter_rows"]))
+        time_bwd_with_dist(kernels, params, tiles, F, fwd_dist, g, n_rows)
+        check_rows_past_count(kernels, binning, cuda_raster, tiles, dFg,
+                              n_rows, RS_GROUP * RS_GPS)
+        check_bucketed(dev, kernels, binning, cuda_raster, scene, params, F,
+                       n_rows)
         check_scatter_adversarial(dev, kernels, cuda_raster, tiles, n_rows)
         check_tiles_adversarial(dev, kernels, binning, common, scene, tiles,
                                 params.chunk)
@@ -586,6 +604,20 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     ms8 = time_ms(lambda: kernels.raster_bwd_flat(*args8, **bkw))
     pms8 = event_ms(lambda: kernels.raster_bwd_flat_plain(*args8, **bkw), 3)
     report("K8_bwd_flat[main]", err8, tol8, ms8, pms8)
+    # what K8's trim of each tile's trailing pads saves: K2 over the real
+    # counts and over the chunk-padded ones (the pads composited), in turns
+    padded = (tiles.counts + chunk - 1) // chunk * chunk
+    bargs2 = (F, tiles.lists, tiles.counts, tiles.rays_t, tiles.pix_t,
+              fwd[1], out1, g)
+    bargs2p = (*bargs2[:2], padded.to(torch.int32), *bargs2[3:])
+    t2 = [time_ms(lambda: kernels.raster_bwd(*bargs2, **bkw)),
+          time_ms(lambda: kernels.raster_bwd(*bargs2p, **bkw))]
+    t2 += [time_ms(lambda: kernels.raster_bwd(*bargs2p, **bkw)),
+           time_ms(lambda: kernels.raster_bwd(*bargs2, **bkw))]
+    print(f"[kernel] trailing pads: K2 over the real counts {t2[0]:.4f}/"
+          f"{t2[3]:.4f} ms, over the chunk-padded counts (pads composited) "
+          f"{t2[1]:.4f}/{t2[2]:.4f} ms; K8 (pads skipped) {ms8:.4f} ms",
+          flush=True)
     b8, by8 = bound(nbytes(F, tiles.rays_t, tiles.pix_t, out7, g)
                     + owned_bytes + n_owned * 64, pairs * BWD_OPS_PER_PAIR)
     results["K8_bwd_flat"] = dict(max_abs_err=err8, ms=ms8, plain_ms=pms8,
@@ -738,7 +770,7 @@ def check_scatter_adversarial(dev, kernels, cuda_raster, tiles,
 
 def flat_of_tiles(lists, counts, tb, chunk: int, pad_id: int):
     """The tiled lists as a flat layout whose tiles own their
-    chunk-padded slots, so K8 (the per-pixel body) replays K2's slots:
+    chunk-padded slots, so K8 replays K2's slots:
     (ids [T*K], starts [1, T+1], tbound [T*K/chunk, P], pos [T, K] the flat
     slot of each tiled slot, owned [T, K])."""
     n_tiles, k_cap = lists.shape
@@ -762,13 +794,12 @@ def flat_of_tiles(lists, counts, tb, chunk: int, pad_id: int):
 
 def check_tiles_adversarial(dev, kernels, binning, common, scene, tiles,
                             chunk) -> None:
-    """Phase 1, K1 and K2 on adversarial inputs at the main path's width.
-    K1 with neither and with both of the median and the distortion term,
-    against its plain version and the per-pixel body (``check_fwd``); K2
-    with and without the distortion term, against the plain version in
-    float64 at 2e-3 * max|dFg64| (the repo's gradient tolerance), its
-    error printed beside the float32 plain version's and the per-pixel
-    body's (K8 over the same slots as a flat layout):
+    """Phase 1, K1, K2, K5 and K8 on adversarial inputs at the main path's
+    width.  K1 with neither and with both of the median and the distortion
+    term, against its plain version and the per-pixel body
+    (``check_fwd``); K2, K5 and K8 with and without the distortion term,
+    against the plain version in float64 at 2e-3 * max|ref64| (the repo's
+    gradient tolerance, ``hold_bwd_to_float64``):
       * the main path's tiles;
       * every third tile empty and every third filled to K slots;
       * 16 tiles led by six opaque surfels stacked half a pixel beside a
@@ -830,7 +861,7 @@ def check_tiles_adversarial(dev, kernels, binning, common, scene, tiles,
         for dist in (False, True):
             g = torch.tensor(gen.normal(size=(n_tiles, rays.shape[1], 8))
                              .astype(np.float32), device=dev)
-            tb = hold_bwd_to_float64(f"[adversarial] K2 {name}", kernels,
+            tb = hold_bwd_to_float64(f"[adversarial] {name}", kernels,
                                      common, (F, lists, counts, rays, pix), g,
                                      chunk, dist)
             if name == "opaque stacks":
@@ -875,18 +906,24 @@ def float64_ties(kernels, common, bargs, chunk):
 
 def hold_bwd_to_float64(name, kernels, common, fwd_args, g, chunk: int,
                         dist: bool):
-    """K2 against the plain version in float64, at 2e-3 * max|dFg64| (the
+    """K2, K5 and K8, one slot-parallel body in its three write modes,
+    each against the plain version in float64 at 2e-3 * max|ref64| (the
     repo's gradient tolerance), on K1's forward of ``fwd_args`` (F, lists,
-    counts, rays, pix) and cotangents ``g``; the float32 plain version's
-    and the per-pixel body's (K8 over the same slots as a flat layout)
-    errors are printed beside.  Tiles holding a float32/float64 branch
-    tie (``float64_ties``) are held apart and printed; every other tile
-    must agree.  Where there are ties, the tied surfels are then moved
-    off them (0.01 px along the image's u, opacity times 0.999) and K2 is
-    held to float64 again on the new inputs.  Returns K1's tbound."""
+    counts, rays, pix) and cotangents ``g``: K2's rows of the real slots;
+    K5's pool against the float64 rows reduced by id; K8's rows over the
+    same slots as a flat layout (``flat_of_tiles``).  The float32 plain
+    version's error is printed beside.  Tiles holding a float32/float64
+    branch tie (``float64_ties``) are held apart, and for K5 the surfels
+    that occur in them; every other tile and surfel must agree.  Where
+    there are ties, the tied surfels are then moved off them (0.01 px
+    along the image's u, opacity times 0.999) and the three are held to
+    float64 again on the new inputs.  Returns K1's tbound."""
     F, lists, counts, rays, pix = fwd_args
-    n_tiles = lists.shape[0]
+    n_tiles, k_cap = lists.shape
+    n_rows = F.shape[0]
     bkw = dict(chunk=chunk, width=W, with_dist=dist)
+    real = (torch.arange(k_cap, device=lists.device)[None, :]
+            < counts[:, None])
 
     def forward_and_float64(F):
         args = (F, lists, counts, rays, pix)
@@ -898,55 +935,71 @@ def hold_bwd_to_float64(name, kernels, common, fwd_args, g, chunk: int,
             **bkw)
         return bargs, d64, *float64_ties(kernels, common, bargs, chunk)
 
-    def max_err(d, d64, tiles):
-        return float((d - d64)[tiles].abs().max()) if bool(tiles.any()) \
-            else 0.0
+    def three(bargs):
+        """K2's rows, K5's pool and K8's rows as [T, K, 16]."""
+        F, tb, out = bargs[0], bargs[5], bargs[6]
+        ids, starts, tbf, pos, owned = flat_of_tiles(lists, counts, tb,
+                                                     chunk, n_rows - 1)
+        rows8 = kernels.raster_bwd_flat(F, ids, starts, rays, pix, tbf, out,
+                                        g, **bkw)
+        d8 = rows8.new_zeros((n_tiles, k_cap, 16))
+        d8[owned] = rows8[pos[owned].long()]
+        return (kernels.raster_bwd(*bargs, **bkw),
+                kernels.raster_bwd_fused(*bargs, n_rows, **bkw), d8)
+
+    def hold(bargs, d64, tie):
+        """[(error, tolerance, held-apart error)] of K2, K5, K8 and the
+        float32 plain version's rows and pool."""
+        tied = tie.any(dim=1)
+        keep = (~tied)[:, None] & real
+        pool64 = kernels.scatter_rows_plain(d64, lists, counts, n_rows)
+        keep5 = torch.ones(n_rows, dtype=torch.bool, device=F.device)
+        keep5[lists[tied[:, None] & real].long()] = False
+        d2, d5, d8 = three(bargs)
+        d32 = kernels.raster_bwd_plain(*bargs, **bkw)
+        p32 = kernels.scatter_rows_plain(d32, lists, counts, n_rows)
+        torch.cuda.synchronize()
+
+        def err(d, ref, mask):
+            return float((d - ref)[mask].abs().max()) if bool(mask.any()) \
+                else 0.0
+
+        tol, tol5 = (2e-3 * float(x.abs().max()) for x in (d64, pool64))
+        return [(err(d2, d64, keep), tol, err(d2, d64, ~keep & real)),
+                (err(d5, pool64, keep5), tol5, err(d5, pool64, ~keep5)),
+                (err(d8, d64, keep), tol, err(d8, d64, ~keep & real)),
+                (err(d32, d64, keep), tol, err(d32, d64, ~keep & real)),
+                (err(p32, pool64, keep5), tol5, err(p32, pool64, ~keep5))]
+
+    def check(res, what, n_kept):
+        labels = ("K2", "K5 pool", "K8", "float32 plain", "its pool")
+        parts = ", ".join(f"{lb} {e:.3e} (tol {t:.3e})"
+                          for lb, (e, t, _) in zip(labels, res))
+        print(f"{name}, with_dist {dist}{what}: max_abs_err vs float64 "
+              f"plain: {parts}; over {n_kept} of {n_tiles} tiles", flush=True)
+        for lb, (e, t, _) in zip(labels[:3], res):
+            if not e <= t:
+                fail(f"{name}, with_dist {dist}{what}: {lb} {e} > {t}")
 
     bargs, d64, tie, kinds = forward_and_float64(F)
-    tb, out = bargs[5], bargs[6]
-    dFg = kernels.raster_bwd(*bargs, **bkw)
-    d32 = kernels.raster_bwd_plain(*bargs, **bkw)
-    ids, starts, tbf, pos, owned = flat_of_tiles(lists, counts, tb, chunk,
-                                                 F.shape[0] - 1)
-    rows8 = kernels.raster_bwd_flat(F, ids, starts, rays, pix, tbf, out, g,
-                                    **bkw)
-    d8 = torch.zeros_like(dFg)
-    d8[owned] = rows8[pos[owned].long()]
-    torch.cuda.synchronize()
     tied = tie.any(dim=1)
-    peak = float(d64.abs().max())
-    tol = 2e-3 * peak
-    e = [max_err(d, d64, ~tied) for d in (dFg, d32, d8)]
-    msg = (f"{name}, with_dist {dist}: max_abs_err vs float64 plain "
-           f"{e[0]:.3e} (tol {tol:.3e}, max|dFg| {peak:.1f}); float32 plain "
-           f"{e[1]:.3e}, per-pixel body (K8) {e[2]:.3e}; over "
-           f"{n_tiles - int(tied.sum())} of {n_tiles} tiles")
+    res = hold(bargs, d64, tie)
+    check(res, "", n_tiles - int(tied.sum()))
     if bool(tied.any()):
-        et = [max_err(d, d64, tied) for d in (dFg, d32, d8)]
-        msg += (f"; held apart, {int(tied.sum())} tiles with float32/float64 "
-                f"branch ties (pairs {kinds}): kernel {et[0]:.3e}, float32 "
-                f"plain {et[1]:.3e}, K8 {et[2]:.3e}")
-    print(msg, flush=True)
-    if not e[0] <= tol:
-        fail(f"{name}, with_dist {dist}: {e[0]} > {tol}")
-    if bool(tied.any()):
+        print(f"{name}, with_dist {dist}: held apart, {int(tied.sum())} "
+              f"tiles with float32/float64 branch ties (pairs {kinds}): "
+              f"K2 {res[0][2]:.3e}, K5 pool {res[1][2]:.3e}, K8 "
+              f"{res[2][2]:.3e}, float32 plain {res[3][2]:.3e}", flush=True)
         ids_tied = lists[tie].long().unique()
         Fn = F.clone()
         Fn[ids_tied, 14] += 0.01
         Fn[ids_tied, 12] *= 0.999
         bargs_n, d64_n, tie_n, kinds_n = forward_and_float64(Fn)
-        d_n = kernels.raster_bwd(*bargs_n, **bkw)
-        torch.cuda.synchronize()
-        keep_n = ~tie_n.any(dim=1)
-        tol_n = 2e-3 * float(d64_n.abs().max())
-        err_n = max_err(d_n, d64_n, keep_n)
-        print(f"{name}, with_dist {dist}, the {ids_tied.numel()} tied "
-              f"surfels moved off their ties: max_abs_err vs float64 plain "
-              f"{err_n:.3e} (tol {tol_n:.3e}) over {int(keep_n.sum())} of "
-              f"{n_tiles} tiles, ties left {kinds_n}", flush=True)
-        if not err_n <= tol_n:
-            fail(f"{name}, with_dist {dist}, ties moved: {err_n} > {tol_n}")
-    return tb
+        res_n = hold(bargs_n, d64_n, tie_n)
+        check(res_n, f", the {ids_tied.numel()} tied surfels moved off "
+              f"their ties (ties left {kinds_n})",
+              n_tiles - int(tie_n.any(dim=1).sum()))
+    return bargs[5]
 
 
 def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
@@ -1043,6 +1096,130 @@ def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
     if not err_t4 <= tol_sum:
         fail(f"truncated K3 + K6 disagrees with K4: {err_t4} > {tol_sum}")
     return results
+
+
+def time_bwd_with_dist(kernels, params, tiles, F, fwd_dist, g,
+                       n_rows) -> None:
+    """Phase 1: K2, K5 and K8 at the main path's shapes with the
+    distortion term (the render API's default), on K1's forward
+    ``fwd_dist`` (out, tbound) with both flags; K8 over the tiles'
+    chunk-padded slots as a flat layout (``flat_of_tiles``: the drop-free
+    budget's layout)."""
+    out, tb = fwd_dist
+    lists, counts = tiles.lists, tiles.counts
+    bkw = dict(chunk=params.chunk, width=W, with_dist=True)
+    bargs = (F, lists, counts, tiles.rays_t, tiles.pix_t, tb, out, g)
+    ids, starts, tbf = flat_of_tiles(lists, counts, tb, params.chunk,
+                                     n_rows - 1)[:3]
+    args8 = (F, ids, starts, tiles.rays_t, tiles.pix_t, tbf, out, g)
+    ms = [time_ms(lambda: kernels.raster_bwd(*bargs, **bkw)),
+          time_ms(lambda: kernels.raster_bwd_fused(*bargs, n_rows, **bkw)),
+          time_ms(lambda: kernels.raster_bwd_flat(*args8, **bkw))]
+    print(f"[kernel] backward body with the distortion term at the main "
+          f"path's shapes (graph replay): K2 {ms[0]:.4f}, K5 {ms[1]:.4f}, "
+          f"K8 {ms[2]:.4f} ms", flush=True)
+
+
+def check_rows_past_count(kernels, binning, cuda_raster, tiles, dFg, n_rows,
+                          rs_step) -> None:
+    """Phase 1: K2 leaves the rows past each tile's count unwritten.  Every
+    reduction of its rows (K3 on the tiled ranksum plan, K4, K10 at tps 8,
+    the occurrence plan's gather + K6, the truncated ranksum plan's K3 +
+    K6) gives the same dF with those rows set to NaN as with them set to
+    0, within 1e-5 * max(1, max|dF|) (the atomics' order varies)."""
+    lists, counts = tiles.lists, tiles.counts
+    real = (torch.arange(lists.shape[1], device=lists.device)[None, :]
+            < counts[:, None])
+    nan, zero = dFg.clone(), dFg.clone()
+    nan[~real] = float("nan")
+    zero[~real] = 0.0
+    n_real = int(counts.sum())
+    e_cap = (n_real - 1) // rs_step * rs_step
+    tplan = cuda_raster.RanksumPlan(*binning.build_ranksum_plan(
+        lists, n_rows - 1, group=cuda_raster.RS_GROUP, gps=cuda_raster.RS_GPS,
+        trunc_frac=(e_cap + rs_step / 2) / lists.numel()))
+    splan = cuda_raster.scatter_plan(lists, n_rows - 1)
+    reductions = [
+        ("K3 on the ranksum plan", lambda d: cuda_raster
+         ._reduce_rows_with_ranksum(d.reshape(-1, 16), tiles.plan, n_rows)),
+        ("K4", lambda d: kernels.scatter_rows(d, lists, counts, n_rows)),
+        ("K10 (tps 8)", lambda d: kernels.scatter_rows_tps(d, lists, counts,
+                                                           n_rows, 8)),
+        ("occurrence plan gather + K6", lambda d: cuda_raster
+         ._scatter_with_plan(d.reshape(-1, 16), splan, n_rows)),
+        ("truncated ranksum plan, K3 + K6", lambda d: cuda_raster
+         ._reduce_rows_with_ranksum(d.reshape(-1, 16), tplan, n_rows))]
+    parts = []
+    for name, fn in reductions:
+        a, b = fn(nan), fn(zero)
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        tol = 1e-5 * max(1.0, float(b.abs().max()))
+        parts.append(f"{name} {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            fail(f"{name} reads K2's rows past the count: {err} > {tol}")
+    print(f"[kernel] K2's {int((~real).sum())} rows past the counts set to "
+          f"NaN, each reduction against the same rows set to 0: "
+          f"{', '.join(parts)}", flush=True)
+
+
+def check_bucketed(dev, kernels, binning, cuda_raster, scene, params, F,
+                   n_rows) -> None:
+    """Phase 1, the render API's bucketed layout at the main path's shapes
+    (the default bucket_frac and bucket_k_small): K5 on each bucket
+    against its plain version (K2's tolerance) and timed; and K3 on the
+    bucketed ranksum plan with the rows past each count set to NaN, as in
+    ``check_rows_past_count``."""
+    bp = params._replace(layout="bucketed", scatter="ranksum")
+    bt = cuda_raster.prepare_tiles(*scene, bp, margin_px=1.5)
+    static = cuda_raster._StaticArgs(chunk=bp.chunk, width=W,
+                                     with_median=False, with_dist=False,
+                                     fused=False)
+    gen = np.random.default_rng(SEED + 3)
+    bkw = dict(chunk=bp.chunk, width=W, with_dist=False)
+    buckets = []
+    for args in ((F, bt.lists_b, bt.counts_b, bt.rays_b, bt.pix_b),
+                 (F, bt.lists_s, bt.counts_s, bt.rays_s, bt.pix_s)):
+        out, tb = cuda_raster._forward_tiled(*args, static)
+        g = torch.tensor(gen.normal(size=tuple(out.shape)).astype(np.float32),
+                         device=dev)
+        buckets.append((*args, tb, out, g))
+    parts = []
+    for label, b in zip(("big", "small"), buckets):
+        d5 = kernels.raster_bwd_fused(*b, n_rows, **bkw)
+        d5_p = kernels.raster_bwd_fused_plain(*b, n_rows, **bkw)
+        torch.cuda.synchronize()
+        err = float((d5 - d5_p).abs().max())
+        tol = 2e-3 * float(d5_p.abs().max())
+        ms = time_ms(lambda: kernels.raster_bwd_fused(*b, n_rows, **bkw))
+        parts.append(f"{label} bucket {b[1].shape[0]} tiles x K "
+                     f"{b[1].shape[1]}: {ms:.4f} ms, max_abs_err {err:.3e} "
+                     f"(tol {tol:.3e})")
+        if not err <= tol:
+            fail(f"K5 on the {label} bucket: {err} > {tol}")
+    both = time_ms(lambda: [kernels.raster_bwd_fused(*b, n_rows, **bkw)
+                            for b in buckets])
+    print(f"[kernel] K5 on the bucketed layout (graph replay): "
+          f"{'; '.join(parts)}; both buckets {both:.4f} ms", flush=True)
+
+    rows = {}
+    for fill in ("nan", "zero"):
+        parts = []
+        for b in buckets:
+            d = kernels.raster_bwd(*b, **bkw)
+            real = (torch.arange(d.shape[1], device=dev)[None, :]
+                    < b[2][:, None])
+            d[~real] = float("nan") if fill == "nan" else 0.0
+            parts.append(d.reshape(-1, 16))
+        rows[fill] = cuda_raster._reduce_rows_with_ranksum(
+            torch.cat(parts), bt.plan, n_rows)
+    torch.cuda.synchronize()
+    err = float((rows["nan"] - rows["zero"]).abs().max())
+    print(f"[kernel] K3 on the bucketed ranksum plan, K2's rows past the "
+          f"counts set to NaN against 0: max_abs_err {err:.3e} (tol 0: one "
+          f"owner per segment, no atomics)", flush=True)
+    if not err == 0.0:
+        fail(f"K3 reads K2's rows past the count on the bucketed plan: {err}")
 
 
 def check_render_parity(dev, rng) -> None:
@@ -1633,6 +1810,17 @@ def profile_optimize(cfg, mapper, model) -> None:
               f"{e.count:6d} x  {e.key[:90]}")
 
 
+def ptxas_summary(log: str) -> str:
+    """Each kernel's registers, stack frame and spill stores from nvcc's
+    ``-Xptxas -v`` log, as "regs/stack B/spill B" in the log's order: a
+    stack frame without spills is a local array, which costs a
+    slot-parallel body its registers' speed."""
+    frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                        log)
+    regs = re.findall(r"Used (\d+) registers", log)
+    return ", ".join(f"{r}/{f}/{sp}" for r, (f, sp) in zip(regs, frames))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs a GPU", file=sys.stderr)
@@ -1645,9 +1833,11 @@ def main() -> int:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    secs = kernels.build_all()
-    print(f"[build] {len(secs)} sources in {time.perf_counter() - t0:.1f} s "
-          f"{ {k: round(v, 1) for k, v in secs.items()} }", flush=True)
+    built = kernels.build_all()
+    print(f"[build] {len(built)} sources in {time.perf_counter() - t0:.1f} s "
+          f"{ {k: round(v[0], 1) for k, v in built.items()} }", flush=True)
+    for source, (_, log) in built.items():
+        print(f"[ptxas] {source}: {ptxas_summary(log)}", flush=True)
     rng = np.random.default_rng(SEED)
     t1 = time.perf_counter()
     results = check_kernels(dev, rng)

@@ -14,12 +14,14 @@
 // Bound on the H100: operations, as K2 (the same arithmetic per pixel-slot
 // pair).
 //
-// Design: raster_bwd.cuh with FLAT = true: one block per (view, tile),
-// walking the tile's live chunks in reverse inside the block with the
-// suffix carries in registers; the per-pixel sub-chunk T_i rebuild and
-// block reduction that K2 had before its redesign.  The wrapper zeroes
-// the rows, so the kernel writes only the rows of the chunks it replays.
-#include "raster_bwd.cuh"
+// Design: the slot-parallel body of raster_bwd_seg.cuh with Out::FLAT:
+// blocks per (view, tile) walk the tile's chunk range [starts[v, t],
+// starts[v, t+1]) in reverse inside the block (the TPU's reversed
+// sequential grid carried the suffix sums from chunk to chunk in scratch,
+// which blocks running in no order cannot), up to the tile's last slot of
+// non-zero opacity: its trailing pads are skipped.  The wrapper zeroes
+// the rows, so the kernel writes only the rows of the slots it composites.
+#include "raster_bwd_seg.cuh"
 
 extern "C" int launch_raster_bwd_flat(const float* F, const int* ids,
                                       const int* starts, const float* rays,
@@ -30,7 +32,13 @@ extern "C" int launch_raster_bwd_flat(const float* F, const int* ids,
                                       float width, float inv_width,
                                       int with_dist, cudaStream_t stream) {
   const splat::SlotLayout L{ids, starts, E, tiles_per_view};
-  return splat::launch_raster_bwd_impl<false, true>(
+  return splat::launch_bwd<splat::Out::FLAT>(
       F, L, rays, pix, tbound, outs, g, rows, n_tiles, C, P, width,
       inv_width, with_dist, stream);
+}
+
+// Resident warps per SM at these shapes, or minus the CUDA error code.
+extern "C" int launch_raster_bwd_flat_resident_warps(int P, int C,
+                                                     int with_dist) {
+  return splat::resident_warps<splat::Out::FLAT>(P, C, with_dist);
 }

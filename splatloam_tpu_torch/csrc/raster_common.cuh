@@ -42,7 +42,7 @@ __device__ __forceinline__ void stage_chunk(float* s, const float* F,
   }
 }
 
-// How a block finds its tile's slots.  Tiled layout (K5): ids are
+// How a block finds its tile's slots.  Tiled layout (K2, K5): ids are
 // the lists [T, K] and meta the counts [T]; slot j of tile t is
 // ids[t * K + j], j < counts[t].  Flat layout (K7, K8): ids are the views'
 // flat slot pools [B, E] (E = slots_per_view) and meta their chunk-aligned

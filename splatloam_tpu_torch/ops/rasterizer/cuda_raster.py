@@ -195,10 +195,16 @@ def _flat_capacity_for(params) -> int:
 
 def scatter_plan(lists, n_surfels: int) -> ScatterPlan:
     """The occurrence plan of ``scatter="plan"`` over tile lists [T, K],
-    with the JAX package's overflow cap of a sixth of the slots."""
+    with the JAX package's overflow cap of a sixth of the slots.  The
+    padding id's row of ``occ`` (its first PLAN_M slots, past some tile's
+    count) is pointed at the pad slot T*K: K2 leaves those rows
+    unwritten, and F's pad row is a constant, so its gradient row is 0
+    as under the other reductions."""
     ov_cap = max(OV_CHUNK, lists.numel() // 6 // OV_CHUNK * OV_CHUNK)
-    return ScatterPlan(*binning.build_scatter_plan(lists, n_surfels,
-                                                   m=PLAN_M, ov_cap=ov_cap))
+    occ, *rest = binning.build_scatter_plan(lists, n_surfels, m=PLAN_M,
+                                            ov_cap=ov_cap)
+    occ[n_surfels] = lists.numel()
+    return ScatterPlan(occ, *rest)
 
 
 def prepare_tiles(xyz, scaling, rotation, opacity, T_cw, K, params,

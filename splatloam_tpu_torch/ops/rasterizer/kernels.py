@@ -53,10 +53,12 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "splatloam_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-# the per-pixel bodies (K5, K7, K8) take one thread per tile pixel, and
-# every body walks slots in 32-slot segments (K1, K2) or sub-chunks (K5,
-# K8) or stages them a chunk at a time (K7)
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
+# K7's per-pixel body takes one thread per tile pixel and K1's and the
+# backward's bodies check a tile's liveness over its pixels in one block;
+# every body walks slots in 32-slot segments (K1, K2, K5, K8) or stages
+# them a chunk at a time (K7)
 MAX_TILE_PIXELS = 256
 SUB = 32
 MAX_CHUNK = 1024
@@ -145,10 +147,11 @@ def _library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, float]:
+def build_all() -> dict[str, tuple[float, str]]:
     """Compile every kernel source that is not built yet, one nvcc per
     source, all started together; load each library.  Returns the build
-    seconds of each compiled source."""
+    seconds and the compiler's log (ptxas' registers, stack frame and
+    spills per kernel) of each compiled source."""
     import time
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -162,11 +165,11 @@ def build_all() -> dict[str, float]:
             jobs[k.source] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
-    seconds = {}
+    built = {}
     errors = []
     for source, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
-        seconds[source] = time.perf_counter() - t0
+        built[source] = (time.perf_counter() - t0, log)
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {source}:\n{log}")
         else:
@@ -180,14 +183,15 @@ def build_all() -> dict[str, float]:
             fn.argtypes = list(k.argtypes)
             fn.restype = ctypes.c_int
             k._fn = fn
-    return seconds
+    return built
 
 
 def resident_warps(name: str, p_tile: int, chunk: int, with_dist: bool,
                    with_median: bool = False) -> int:
     """Resident warps per SM of kernel ``name`` (a forward, "K1_fwd" or
-    "K7_fwd_flat", or a backward, "K2_bwd" or "K5_bwd_fused") at these
-    shapes, from cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    "K7_fwd_flat", or a backward, "K2_bwd", "K5_bwd_fused" or
+    "K8_bwd_flat") at these shapes, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     k = KERNELS[name]
     k.fn()
     fn = getattr(ctypes.CDLL(str(_library_path(k.source))),
@@ -511,7 +515,9 @@ def _launch_bwd(name, dst, F, lists, counts, rays, pix, tbound, outs, g,
 def raster_bwd(F, lists, counts, rays, pix, tbound, outs, g, *,
                chunk: int, width: int, with_dist: bool):
     """K2: dFg [T, K, 16] per-slot feature gradients (the median channel
-    is not differentiated)."""
+    is not differentiated).  Rows past each tile's count are zeros in the
+    plain version and left unwritten by the kernel: no reduction reads
+    them."""
     if not _on_cuda(F):
         return raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs,
                                 g, chunk=chunk, width=width,
