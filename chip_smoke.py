@@ -15,9 +15,11 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      per tile, 100k surfels) and K1/K2 also at the small-pool geometry
      (8x32 tiles, chunk 256, 1024 slots), and times kernel, plain version
      and, for the reductions, one torch.index_add_; K1 runs with neither
-     and with both of the median and the distortion term, each also held
-     against the per-pixel body (K7 over the same slots), pixels whose
-     median is a float32/float64 tie at T = 0.5 held apart; K2, K5 and K8
+     and with both of the median and the distortion term, K1 and K7 (the
+     same body over the same slots as a flat layout) each also held
+     against the plain version in float64, pixels whose median is a
+     float32/float64 tie at T = 0.5 and tiles whose exit is a tie at
+     T_EPS held apart, and K7 against K1; K2, K5 and K8
      (one slot-parallel body in three write modes) are also timed with
      the distortion term, and K5 on the bucketed layout's two buckets;
      K3 is also timed on a plan whose padding-id entries are masked to
@@ -26,7 +28,10 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      (its uncapped overflow count printed beside the cap) and under a
      truncated ranksum plan, each held against K4; K7 is held against K1
      and K8 + K9 against K2 + K4 under a flat budget that drops nothing,
-     K10 against K4; the default flat budget's drops are printed; every
+     and K8 into a NaN-filled rows buffer, then K9, against K8 into a
+     zero-filled one (K8 writes every row K9 reads; K9 reads no pad's and
+     no unowned chunk's), K10 against K4; the default flat budget's
+     drops are printed; every
      reduction of K2's rows (K3 on the tiled and the bucketed plan, K4,
      K10, the occurrence plan + K6, the truncated ranksum plan + K6) is
      run again with the rows past each tile's count, which K2 leaves
@@ -41,9 +46,9 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      with and without the distortion term, against the plain version in
      float64, the float32 plain version's error printed beside, tiles
      with a float32/float64 branch tie held apart and then moved off the
-     tie and held again; the resident warps per SM of K1's and the
-     backward's slot-parallel bodies (K2, K5, K8) and of K7's per-pixel
-     body are printed for both geometries.  Kernel and index_add_ times
+     tie and held again; the resident warps per SM of the forward's
+     (K1, K7) and the backward's (K2, K5, K8) slot-parallel bodies are
+     printed for both geometries.  Kernel and index_add_ times
      are device time from a CUDA graph replay (``time_ms``: the host
      launches nothing while it runs), each reduction and its index_add_
      with its own zero fill of dF; the reductions also print their
@@ -304,9 +309,9 @@ def check_kernels(dev, rng) -> dict:
         warps = [kernels.resident_warps(k, p_tile, params.chunk, f, f)
                  for f in (False, True) for k in ("K1_fwd", "K7_fwd_flat")]
         print(f"[occupancy] {label} ({p_tile} px, chunk {params.chunk}): "
-              f"resident warps per SM, K1 slot-parallel body {warps[0]}, "
-              f"per-pixel body (K7) {warps[1]}; with the median and the "
-              f"distortion term: {warps[2]} and {warps[3]}", flush=True)
+              f"resident warps per SM of the forward's slot-parallel body, "
+              f"K1/K7 {warps[0]}/{warps[1]}; with the median and the "
+              f"distortion term {warps[2]}/{warps[3]}", flush=True)
         if label != "main":
             continue
 
@@ -482,45 +487,103 @@ def tiled_tbound(tbf, starts, counts, chunk: int, n_chunks: int):
     return tb.transpose(1, 2)
 
 
+def exit_ties(kernels, counts, out64, tb64, chunk: int):
+    """[T] bool: tiles whose exit may come at another chunk in float32 than
+    in float64: at a chunk boundary the tile decided on (after its first
+    chunk, before its count), the largest T over its pixels, in float64,
+    lies within 1e-5 relative of T_EPS."""
+    from splatloam_tpu_torch.ops.rasterizer.common import T_EPS
+
+    def near(m):
+        return (m - T_EPS).abs() <= 1e-5 * T_EPS
+
+    n_act = kernels._n_active_chunks(counts, chunk)
+    n_live = kernels._live_chunks(counts, tb64, chunk)
+    i = torch.arange(tb64.shape[2], device=tb64.device)[None, :]
+    inside = near(tb64.amax(dim=1)) & (i >= 1) & (i < n_live[:, None])
+    # the boundary where the float64 tile stopped short of its count
+    stopped = near(out64[..., 7].amax(dim=1)) & (n_live < n_act)
+    return inside.any(dim=1) | stopped
+
+
+def hold_fwd_to_float64(name, kernels, fwd_args, kw, out, tb, out_p, tb_p,
+                        tag: str):
+    """K1 (``out``, ``tb``: its result on ``fwd_args``) and K7 over the same
+    slots as a flat layout (``flat_of_tiles``, ``tiled_tbound``), each
+    against the plain version in float64 on the card, outputs and tbound,
+    at 1e-5 * max(1, max|out64|) (K1 and K7 multiply segment products, the
+    plain version sums logs: fp32 sums of up to K terms); the float32
+    plain version's error (``out_p``, ``tb_p``) is printed beside.  The
+    median of pixels in ``median_ties`` (from the float64 tbound) is held
+    apart, and so are the tiles in ``exit_ties`` (all their outputs), and
+    both counts are printed.  K7 against K1 is a layout check: one body
+    over the same segments, pads not composited, so 0 is expected; it
+    fails above the same tolerance.  Returns the median ties [T, P]."""
+    F, lists, counts, rays, pix = fwd_args
+    chunk = kw["chunk"]
+    ids, starts = flat_of_tiles(lists, counts, tb, chunk, F.shape[0] - 1)[:2]
+    out7, tbf = kernels.raster_fwd_flat(F, ids, starts, rays, pix, **kw)
+    tb7 = tiled_tbound(tbf, starts, counts, chunk, tb.shape[2])
+    out64, tb64 = kernels.raster_fwd_plain(
+        *(a.double() if a.is_floating_point() else a for a in fwd_args),
+        **kw)
+    torch.cuda.synchronize()
+    tie = (median_ties(kernels, fwd_args, tb64, chunk) if kw["with_median"]
+           else torch.zeros(out.shape[:2], dtype=torch.bool,
+                            device=out.device))
+    xtie = exit_ties(kernels, counts, out64, tb64, chunk)
+    med = torch.zeros(8, dtype=torch.bool, device=out.device)
+    med[5] = True
+    keep = ~xtie[:, None, None]
+
+    def err(o, t):
+        d = torch.where(med & tie[..., None], 0.0, (o.double() - out64).abs())
+        dt = (t.double() - tb64).abs()
+        return max(float(torch.where(keep, d, 0.0).max()),
+                   float(torch.where(keep, dt, 0.0).max()))
+
+    tol = 1e-5 * max(1.0, float(out64.abs().max()))
+    e1, e7, e32 = err(out, tb), err(out7, tb7), err(out_p, tb_p)
+    e71 = max(float((out7 - out).abs().max()), float((tb7 - tb).abs().max()))
+    e1x = float((out.double() - out64)[xtie].abs().max()) \
+        if bool(xtie.any()) else 0.0
+    flags = f"median {int(kw['with_median'])}, dist {int(kw['with_dist'])}"
+    crossed = int((out64[..., 5] > 0).sum())
+    print(f"[{tag}] {name} ({flags}) vs the float64 plain version: K1 "
+          f"{e1:.3e}, K7 {e7:.3e}, float32 plain {e32:.3e} (tol {tol:.3e}); "
+          f"held apart: median ties {int(tie.sum())} of {crossed} pixels "
+          f"with a median, exit ties {int(xtie.sum())} of {xtie.numel()} "
+          f"tiles (K1 {e1x:.3e} there); K7 vs K1 {e71:.3e}", flush=True)
+    for what, e in (("K1", e1), ("K7", e7)):
+        if not e <= tol:
+            fail(f"{name} ({flags}): {what} disagrees with the float64 plain "
+                 f"version: {e} > {tol}")
+    if not e71 <= tol:
+        fail(f"{name} ({flags}): K7 disagrees with K1: {e71} > {tol}")
+    return tie
+
+
 def check_fwd(name, kernels, fwd_args, chunk: int, with_median: bool,
               with_dist: bool, timed: bool = False, tag: str = "kernel"):
-    """K1 against its plain version and against the per-pixel body (K7
-    over the same slots as a flat layout), outputs and tbound, at
-    1e-5 * max(1, max|out|): products of segment products in the kernel,
-    a running product in K7 and log-space prefix sums in the plain
-    version round differently (fp32 sums of up to K terms).  The median
-    of pixels in ``median_ties`` is held apart and their count printed.
-    With ``timed``, also times K1 and its plain version and returns
-    (out, tbound, error, ms, plain ms)."""
-    F, lists, counts, rays, pix = fwd_args
+    """K1 against its plain version, outputs and tbound, at
+    1e-5 * max(1, max|out|): products of segment products in the kernel
+    and log-space prefix sums in the plain version round differently
+    (fp32 sums of up to K terms); the median of pixels in ``median_ties``
+    is held apart.  Then K1 and K7 against the float64 plain version and
+    K7 against K1 (``hold_fwd_to_float64``).  With ``timed``, also times
+    K1 and its plain version and returns (out, tbound, error, ms, plain
+    ms)."""
     kw = dict(chunk=chunk, width=W, with_median=with_median,
               with_dist=with_dist)
     out, tb = kernels.raster_fwd(*fwd_args, **kw)
     out_p, tb_p = kernels.raster_fwd_plain(*fwd_args, **kw)
-    ids, starts = flat_of_tiles(lists, counts, tb, chunk, F.shape[0] - 1)[:2]
-    out7, tbf = kernels.raster_fwd_flat(F, ids, starts, rays, pix, **kw)
-    tb7 = tiled_tbound(tbf, starts, counts, chunk, tb.shape[2])
-    torch.cuda.synchronize()
-    tie = (median_ties(kernels, fwd_args, tb_p, chunk) if with_median
-           else torch.zeros(out.shape[:2], dtype=torch.bool,
-                            device=out.device))
-    med = torch.zeros(8, dtype=torch.bool, device=out.device)
-    med[5] = True
-
-    def err(o, t, o_ref, t_ref):
-        d = (o - o_ref).abs()
-        d = torch.where(med & tie[..., None], 0.0, d)
-        return max(float(d.max()), float((t - t_ref).abs().max()))
-
+    tie = hold_fwd_to_float64(name, kernels, fwd_args, kw, out, tb, out_p,
+                              tb_p, tag)
+    d = (out - out_p).abs()
+    d[..., 5] = torch.where(tie, 0.0, d[..., 5])
+    e_p = max(float(d.max()), float((tb - tb_p).abs().max()))
     tol = 1e-5 * max(1.0, float(out_p.abs().max()))
-    e_p, e_7 = err(out, tb, out_p, tb_p), err(out, tb, out7, tb7)
     flags = f"median {int(with_median)}, dist {int(with_dist)}"
-    crossed = int((out_p[..., 5] > 0).sum())
-    print(f"[{tag}] {name} ({flags}) vs the per-pixel body (K7): "
-          f"max_abs_err {e_7:.3e} (tol {tol:.3e}); median ties held apart "
-          f"{int(tie.sum())} of {crossed} pixels with a median", flush=True)
-    if not e_7 <= tol:
-        fail(f"{name} ({flags}) disagrees with K7: {e_7} > {tol}")
     if not timed:
         print(f"[{tag}] {name} ({flags}) vs its plain version: max_abs_err "
               f"{e_p:.3e} (tol {tol:.3e})", flush=True)
@@ -531,6 +594,12 @@ def check_fwd(name, kernels, fwd_args, chunk: int, with_median: bool,
     ms = time_ms(lambda: kernels.raster_fwd(*fwd_args, **kw))
     pms = event_ms(lambda: kernels.raster_fwd_plain(*fwd_args, **kw), 3)
     report(f"{name} ({flags})", e_p, tol, ms, pms)
+    F, lists, counts, rays, pix = fwd_args
+    ids, starts = flat_of_tiles(lists, counts, tb, chunk, F.shape[0] - 1)[:2]
+    ms7 = time_ms(lambda: kernels.raster_fwd_flat(F, ids, starts, rays, pix,
+                                                  **kw))
+    print(f"[kernel] K7 over the same slots as a flat layout ({flags}): "
+          f"{ms7:.4f} ms, K1 {ms:.4f} ms", flush=True)
     return out, tb, e_p, ms, pms
 
 
@@ -598,8 +667,9 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     rows = kernels.raster_bwd_flat(*args8, **bkw)
     rows_p = kernels.raster_bwd_flat_plain(*args8, **bkw)
     torch.cuda.synchronize()
-    # K2's tolerance against its plain version, for the same reason
-    err8 = float((rows - rows_p).abs().max())
+    # K2's tolerance against its plain version, for the same reason; K8
+    # leaves the rows of the unowned budget chunks unwritten
+    err8 = float((rows - rows_p)[:n_owned].abs().max())
     tol8 = 2e-3 * float(rows_p.abs().max())
     ms8 = time_ms(lambda: kernels.raster_bwd_flat(*args8, **bkw))
     pms8 = event_ms(lambda: kernels.raster_bwd_flat_plain(*args8, **bkw), 3)
@@ -623,8 +693,8 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
     results["K8_bwd_flat"] = dict(max_abs_err=err8, ms=ms8, plain_ms=pms8,
                                   bound_ms=b8, bound_by=by8, library_ms=None)
 
-    dF9 = kernels.scatter_rows_flat(rows, ids, n_rows)
-    dF9_p = kernels.scatter_rows_flat_plain(rows, ids, n_rows)
+    dF9 = kernels.scatter_rows_flat(rows, ids, starts, n_rows)
+    dF9_p = kernels.scatter_rows_flat_plain(rows, ids, starts, n_rows)
     torch.cuda.synchronize()
     err9 = float((dF9 - dF9_p).abs().max())
     tol9 = 1e-5 * max(1.0, float(dF9_p.abs().max()))
@@ -633,13 +703,25 @@ def check_flat_and_tps(kernels, cuda_raster, scene, params, tiles, F, fwd, g,
           f"(tol {tol_sum:.3e})", flush=True)
     if not err94 <= tol_sum:
         fail(f"K8 + K9 disagree with K2 + K4: {err94} > {tol_sum}")
-    ids_l = ids.long()
-    pms9 = event_ms(lambda: kernels.scatter_rows_flat_plain(rows, ids, n_rows))
+    summed = kernels._flat_summed_slots(ids, starts, n_rows)
+    ids_s, rows_s = ids[summed].long(), rows[summed]
+    pms9 = event_ms(lambda: kernels.scatter_rows_flat_plain(rows, ids, starts,
+                                                            n_rows))
     ms9, lib9 = yardstick(
-        "K9", lambda: kernels.scatter_rows_flat(rows, ids, n_rows),
-        lambda: rows.new_zeros((n_rows, 16)).index_add_(0, ids_l, rows))
+        "K9", lambda: kernels.scatter_rows_flat(rows, ids, starts, n_rows),
+        lambda: rows.new_zeros((n_rows, 16)).index_add_(0, ids_s, rows_s))
     report("K9_scatter_rows_flat[main]", err9, tol9, ms9, pms9, lib9)
-    b9, by9 = bound(n_owned * (64 + 4) + n_rows * 64, n_owned * 16)
+    check_flat_rows_contract(kernels, args8, bkw, n_rows)
+    # K4's rule: the rows and ids of the slots it sums (owned, not pads)
+    # read once, the pool written once; the earlier bound read every owned
+    # slot's row and id
+    n_sum = int(summed.sum())
+    b9, by9 = bound(n_sum * (64 + 4) + nbytes(starts) + n_rows * 64,
+                    n_sum * 16)
+    b9_owned = bound(n_owned * (64 + 4) + n_rows * 64, n_owned * 16)[0]
+    print(f"[kernel] K9 bound: {b9:.4f} ms ({by9}) over the {n_sum} summed "
+          f"slots (owned, not pads); {b9_owned:.4f} ms over all {n_owned} "
+          f"owned slots (the earlier bound)", flush=True)
     results["K9_scatter_rows_flat"] = dict(
         max_abs_err=err9, ms=ms9, plain_ms=pms9, bound_ms=b9, bound_by=by9,
         library_ms=lib9)
@@ -794,10 +876,11 @@ def flat_of_tiles(lists, counts, tb, chunk: int, pad_id: int):
 
 def check_tiles_adversarial(dev, kernels, binning, common, scene, tiles,
                             chunk) -> None:
-    """Phase 1, K1, K2, K5 and K8 on adversarial inputs at the main path's
-    width.  K1 with neither and with both of the median and the distortion
-    term, against its plain version and the per-pixel body
-    (``check_fwd``); K2, K5 and K8 with and without the distortion term,
+    """Phase 1, K1, K7, K2, K5 and K8 on adversarial inputs at the main
+    path's width.  K1 with neither and with both of the median and the
+    distortion term, against its plain version, and K1 and K7 against the
+    plain version in float64 (``check_fwd``); K2, K5 and K8 with and
+    without the distortion term,
     against the plain version in float64 at 2e-3 * max|ref64| (the repo's
     gradient tolerance, ``hold_bwd_to_float64``):
       * the main path's tiles;
@@ -1161,6 +1244,42 @@ def check_rows_past_count(kernels, binning, cuda_raster, tiles, dFg, n_rows,
     print(f"[kernel] K2's {int((~real).sum())} rows past the counts set to "
           f"NaN, each reduction against the same rows set to 0: "
           f"{', '.join(parts)}", flush=True)
+
+
+def check_flat_rows_contract(kernels, args8, bkw, n_rows) -> None:
+    """Phase 1: K8 writes every row that K9 reads, in the same call, and K9
+    reads no other (pads, budget chunks no tile owns).  K8's launcher into
+    a rows buffer filled with NaN, then K9, against K8 into a zero-filled
+    buffer, then K9; and K9 on those zero-filled rows with every row it
+    must not read set to NaN.  Each within 1e-5 * max(1, max|dF|) (the
+    atomics' order varies)."""
+    F, ids, starts = args8[:3]
+    summed = kernels._flat_summed_slots(ids, starts, n_rows)
+
+    def k8_into(fill):
+        rows = torch.full((ids.shape[0], 16), fill, device=F.device)
+        return kernels._launch_bwd_flat(rows, *args8, bkw["chunk"],
+                                        bkw["width"], bkw["with_dist"])
+
+    zero = k8_into(0.0)
+    ref = kernels.scatter_rows_flat(zero, ids, starts, n_rows)
+    skipped = torch.where(summed[:, None], zero, float("nan"))
+    cases = [("K8 into NaN-filled rows, then K9",
+              kernels.scatter_rows_flat(k8_into(float("nan")), ids, starts,
+                                        n_rows)),
+             (f"K9 with the {int((~summed).sum())} rows it must not read "
+              f"set to NaN", kernels.scatter_rows_flat(skipped, ids, starts,
+                                                       n_rows))]
+    torch.cuda.synchronize()
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    parts = []
+    for what, dF in cases:
+        err = float((dF - ref).abs().max())
+        parts.append(f"{what} {err:.3e}")
+        if not err <= tol:
+            fail(f"{what}: {err} against a zero-filled buffer > {tol}")
+    print(f"[kernel] K8/K9 row contract against K8 into zero-filled rows, "
+          f"then K9: {', '.join(parts)} (tol {tol:.3e})", flush=True)
 
 
 def check_bucketed(dev, kernels, binning, cuda_raster, scene, params, F,
@@ -1812,13 +1931,25 @@ def profile_optimize(cfg, mapper, model) -> None:
 
 def ptxas_summary(log: str) -> str:
     """Each kernel's registers, stack frame and spill stores from nvcc's
-    ``-Xptxas -v`` log, as "regs/stack B/spill B" in the log's order: a
-    stack frame without spills is a local array, which costs a
-    slot-parallel body its registers' speed."""
+    ``-Xptxas -v`` log, as "name<template args> regs/stack B/spill B" in
+    the log's order: a stack frame without spills is a local array, which
+    costs a slot-parallel body its registers' speed."""
+    names = re.findall(r"Compiling entry function '(\w+)'", log)
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")
+        names = [re.sub(r"\(splat::\(anonymous namespace\)::(\w+)\)",
+                        r"\1::", "".join(m.groups("")))
+                 for m in (re.search(r"(\w+)(<.*?>)?\(", n) for n in names)
+                 if m]
+    except (OSError, subprocess.CalledProcessError):
+        pass
     frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                         log)
     regs = re.findall(r"Used (\d+) registers", log)
-    return ", ".join(f"{r}/{f}/{sp}" for r, (f, sp) in zip(regs, frames))
+    return ", ".join(f"{n} {r}/{f}/{sp}"
+                     for n, r, (f, sp) in zip(names, regs, frames))
 
 
 def main() -> int:

@@ -5,8 +5,9 @@
 // carries the suffix sums in scratch and resets them at each tile's
 // deepest chunk).
 //
-// rows [B*E, 16] (one per flat slot; rows of dead chunks, of unowned
-// budget chunks and of pads are 0) from the pool F [B*(N+1), 16], the
+// rows [B*E, 16] (one per owned flat slot; rows of dead chunks and of
+// pads are 0; the rows of budget chunks past starts[v, T], which no tile
+// owns, are left unwritten) from the pool F [B*(N+1), 16], the
 // views' flat slot ids [B, E], their segment starts [B, T+1], K7's tbound
 // [B*E/C, P] and out, and the output cotangents g [B*T, P, 8].  K9 then
 // sums the rows into the pool by slot id.
@@ -19,8 +20,10 @@
 // starts[v, t+1]) in reverse inside the block (the TPU's reversed
 // sequential grid carried the suffix sums from chunk to chunk in scratch,
 // which blocks running in no order cannot), up to the tile's last slot of
-// non-zero opacity: its trailing pads are skipped.  The wrapper zeroes
-// the rows, so the kernel writes only the rows of the slots it composites.
+// non-zero opacity: its trailing pads are skipped.  A 64- or 32-pixel
+// tile (one block) writes zeros for the owned slots it does not walk, so
+// every row K9 reads is written in the same call and the wrapper fills
+// nothing; a larger tile's blocks add into rows the launcher zeroes.
 #include "raster_bwd_seg.cuh"
 
 extern "C" int launch_raster_bwd_flat(const float* F, const int* ids,

@@ -68,10 +68,15 @@ namespace {
 //     zeroed pool [B*(N+1), 16] (multi-view ids carry their view's row
 //     offset); dFg never reaches device memory.
 //   FLAT (K8): rows [B*E, 16], row slot0 + j of the tile's flat chunk
-//     range, into rows the wrapper zeroed (K9 reads every flat slot's
-//     row).  The tile's trailing pads (the view's zero row, opacity 0)
+//     range.  The tile's trailing pads (the view's zero row, opacity 0)
 //     composite to nothing and give zero rows, so the walk stops at the
-//     last slot of non-zero opacity.
+//     last slot of non-zero opacity.  K9 reads the row of every owned
+//     slot but the pads, so a one-group tile writes zeros for the slots it
+//     does not composite, [n_slots, its chunk range's end): the real
+//     slots of dead chunks and of opacity 0 past the trim (whose rows are
+//     0), and the pads among them (4 float4 stores a slot, where K9 would
+//     otherwise need tbound and F to tell which rows to skip).  With more
+//     groups the launcher zeroes the rows and the groups add.
 enum class Out { ROWS, FUSED, FLAT };
 
 constexpr int SEG = 32;      // slots per segment
@@ -95,16 +100,6 @@ inline Shape shape_of(int P, int C, bool dist) {
              s.pg;
   return s;
 }
-
-// Chunk i's start T at tile pixel px: tiled [T, P, K/C] (pixel-major per
-// tile), flat [B*E/C, P] (chunk-major over the flat chunks).
-struct TBound {
-  const float* base;
-  size_t px_step, chunk_step;
-  __device__ __forceinline__ float at(int px, int i) const {
-    return base[px * px_step + i * chunk_step];
-  }
-};
 
 // F row of a slot, with n.p, p.gu and p.gv (the staged layout of
 // raster_common.cuh), read by every lane of the warp at once
@@ -178,7 +173,7 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
 
   const TileSlots ts = tile_slots<FLAT>(L, t, C);
   const int* list = ts.list;
-  int count = ts.count;
+  int count = ts.count;   // slots to walk
   if (FLAT && count > 0) {
     // pads fill the tail of the tile's last chunk; the count goes through
     // s_tl's first word, which pass 1 writes only after later barriers
@@ -191,10 +186,7 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
     __syncthreads();
     count = *s_count;
   }
-  const TBound tb =
-      FLAT ? TBound{tbound + ts.slot0 / C * P, 1, (size_t)P}
-           : TBound{tbound + (size_t)t * P * (L.slots_per_view / C),
-                    (size_t)(L.slots_per_view / C), 1};
+  const TBound tb = tbound_of<FLAT>(tbound, L, ts, t, C, P);
   const int n_act = (count + C - 1) / C;
   int n_live = 0;   // over all the tile's pixels, as the forward decided
   for (int i = 0; i < n_act; ++i)
@@ -202,9 +194,9 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
   const int n_slots = n_live > 0 ? min(count, n_live * C) : 0;
 
   float* rows = dst + ts.slot0 * 16;   // ROWS, FLAT: the tile's rows
-  if (MODE == Out::ROWS && npg == 1) {
+  if (MODE != Out::FUSED && npg == 1) {
     float4* rows4 = reinterpret_cast<float4*>(rows);
-    for (int i = n_slots * 4 + tid; i < count * 4; i += NWARP * 32)
+    for (int i = n_slots * 4 + tid; i < ts.count * 4; i += NWARP * 32)
       rows4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   if (n_slots == 0) return;
@@ -488,8 +480,8 @@ int prepare(int P, int C, int with_dist, BwdKernel* fn, size_t* smem) {
 
 // Launch over n_tiles tiles of P pixels (P a multiple of 32 up to 256, C
 // a multiple of 32 dividing the tile's slot space); returns the CUDA
-// error code.  ROWS zeroes dFg [n_tiles, K, 16] first when a tile takes
-// more than one block.
+// error code.  ROWS and FLAT zero their rows (dFg [n_tiles, K, 16], rows
+// [B*E, 16]) first when a tile takes more than one block.
 template <Out MODE>
 int launch_bwd(const float* F, SlotLayout L, const float* rays,
                const float* pix, const float* tbound, const float* outs,
@@ -502,10 +494,13 @@ int launch_bwd(const float* F, SlotLayout L, const float* rays,
   if (err != 0) return err;
   if (n_tiles == 0) return 0;
   const int npg = shape_of(P, C, with_dist != 0).npg;
-  if (MODE == Out::ROWS && npg > 1) {
-    const cudaError_t e = cudaMemsetAsync(
-        dst, 0, (size_t)n_tiles * L.slots_per_view * 16 * sizeof(float),
-        stream);
+  if (MODE != Out::FUSED && npg > 1) {
+    const size_t n_rows =
+        MODE == Out::FLAT
+            ? (size_t)(n_tiles / L.tiles_per_view) * L.slots_per_view
+            : (size_t)n_tiles * L.slots_per_view;
+    const cudaError_t e =
+        cudaMemsetAsync(dst, 0, n_rows * 16 * sizeof(float), stream);
     if (e != cudaSuccess) return (int)e;
   }
   fn<<<n_tiles * npg, NWARP * 32, smem, stream>>>(

@@ -42,7 +42,7 @@ __device__ __forceinline__ void stage_chunk(float* s, const float* F,
   }
 }
 
-// How a block finds its tile's slots.  Tiled layout (K2, K5): ids are
+// How a block finds its tile's slots.  Tiled layout (K1, K2, K5): ids are
 // the lists [T, K] and meta the counts [T]; slot j of tile t is
 // ids[t * K + j], j < counts[t].  Flat layout (K7, K8): ids are the views'
 // flat slot pools [B, E] (E = slots_per_view) and meta their chunk-aligned
@@ -74,6 +74,29 @@ __device__ __forceinline__ TileSlots tile_slots(const SlotLayout& L, int t,
   }
   const size_t slot0 = (size_t)t * L.slots_per_view;
   return {L.ids + slot0, L.meta[t], slot0};
+}
+
+// Chunk i's start T at tile pixel px: tiled [T, P, K/C] (pixel-major per
+// tile), flat [B*E/C, P] (chunk-major over the flat chunks).  The forward
+// writes it (Float = float), the backward reads it (const float).
+template <typename Float>
+struct TBoundOf {
+  Float* base;
+  int px_step, chunk_step;
+  __device__ __forceinline__ Float& at(int px, int i) const {
+    return base[px * px_step + i * chunk_step];
+  }
+};
+using TBound = TBoundOf<const float>;
+
+template <bool FLAT, typename Float>
+__device__ __forceinline__ TBoundOf<Float> tbound_of(Float* tbound,
+                                                     const SlotLayout& L,
+                                                     const TileSlots& ts,
+                                                     int t, int C, int P) {
+  if (FLAT) return {tbound + ts.slot0 / C * P, 1, P};
+  const int nc = L.slots_per_view / C;
+  return {tbound + (size_t)t * P * nc, nc, 1};
 }
 
 struct Geo {

@@ -385,7 +385,8 @@ class _RasterCore(torch.autograd.Function):
 class _RasterCoreFlat(torch.autograd.Function):
     """out [B*T, P, 8] = K7(F) over the pool F [B*(N+1), 16], the views'
     offset flat slot ids [B*E] and segment starts [B, T+1]; its backward
-    is K8's per-slot rows summed into the pool by K9."""
+    is K8's per-slot rows summed into the pool by K9 (the owned slots'
+    rows but the pads')."""
 
     @staticmethod
     def forward(ctx, F, ids, starts, rays_t, pix_t, static):
@@ -405,7 +406,7 @@ class _RasterCoreFlat(torch.autograd.Function):
             F, ids, starts, rays_t, pix_t, tbound, out, g.contiguous(),
             chunk=static.chunk, width=static.width,
             with_dist=static.with_dist)
-        dF = kernels.scatter_rows_flat(rows, ids, F.shape[0])
+        dF = kernels.scatter_rows_flat(rows, ids, starts, F.shape[0])
         return dF, None, None, None, None, None
 
 

@@ -32,7 +32,8 @@ Flat layout (K7-K9): ids [B*E] int32 slot ids into the pool (pads name a
 view's zero row N), starts [B, T+1] int32 chunk-aligned segment starts of
 each view's E slots, tbound [B*E/chunk, P] per flat chunk, rows [B*E, 16]
 per flat slot.  Tile t of view v owns the chunks [starts[v, t],
-starts[v, t+1]); budget chunks past starts[v, T] belong to no tile.
+starts[v, t+1]); budget chunks past starts[v, T] belong to no tile, and
+K9 sums the rows of the owned slots that are not pads only.
 """
 from __future__ import annotations
 
@@ -55,10 +56,8 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "splatloam_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
-# K7's per-pixel body takes one thread per tile pixel and K1's and the
-# backward's bodies check a tile's liveness over its pixels in one block;
-# every body walks slots in 32-slot segments (K1, K2, K5, K8) or stages
-# them a chunk at a time (K7)
+# the forward's and the backward's bodies check a tile's liveness over
+# its pixels in one block, and walk slots in 32-slot segments
 MAX_TILE_PIXELS = 256
 SUB = 32
 MAX_CHUNK = 1024
@@ -115,7 +114,8 @@ KERNELS = {
         f"{_TPU}:1153"),
     "K9_scatter_rows_flat": Kernel(
         "K9_scatter_rows_flat", "scatter_rows_flat.cu",
-        "launch_scatter_rows_flat", (_P,) * 3 + (_I, _P), f"{_TPU}:1272"),
+        "launch_scatter_rows_flat", (_P,) * 4 + (_I,) * 4 + (_P,),
+        f"{_TPU}:1272"),
     "K10_scatter_rows_tps": Kernel(
         "K10_scatter_rows_tps", "scatter_rows.cu", "launch_scatter_rows",
         (_P,) * 4 + (_I, _I, _P), f"{_TPU}:511"),
@@ -740,7 +740,8 @@ def raster_fwd_flat(F, ids, starts, rays, pix, *, chunk: int, width: int,
                                                   chunk)
     out = torch.empty((n_tiles, p_tile, 8), dtype=torch.float32,
                       device=F.device)
-    tbound = torch.zeros((ids.shape[0] // chunk, p_tile),
+    # the kernel zeroes the chunks no tile reached, owned or not
+    tbound = torch.empty((ids.shape[0] // chunk, p_tile),
                          dtype=torch.float32, device=F.device)
     _launch("K7_fwd_flat", F.data_ptr(), ids.data_ptr(), starts.data_ptr(),
             rays.data_ptr(), pix.data_ptr(), out.data_ptr(),
@@ -766,15 +767,9 @@ def raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound, outs, g, *,
     return rows.reshape(-1, 16)
 
 
-def raster_bwd_flat(F, ids, starts, rays, pix, tbound, outs, g, *,
-                    chunk: int, width: int, with_dist: bool):
-    """K8: rows [B*E, 16] per flat slot (the median channel is not
-    differentiated); rows of chunks the forward skipped and of chunks no
-    tile owns are 0."""
-    if not _on_cuda(F):
-        return raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound,
-                                     outs, g, chunk=chunk, width=width,
-                                     with_dist=with_dist)
+def _launch_bwd_flat(rows, F, ids, starts, rays, pix, tbound, outs, g,
+                     chunk: int, width: int, with_dist: bool):
+    """Check K8's inputs and launch it writing into ``rows``."""
     n_tiles, p_tile, e_view, t_view = _check_flat(F, ids, starts, rays, pix,
                                                   chunk)
     dev = F.device
@@ -782,7 +777,7 @@ def raster_bwd_flat(F, ids, starts, rays, pix, tbound, outs, g, *,
            (ids.shape[0] // chunk, p_tile), dev)
     _check("outs", outs, torch.float32, (n_tiles, p_tile, 8), dev)
     _check("g", g, torch.float32, (n_tiles, p_tile, 8), dev)
-    rows = torch.zeros((ids.shape[0], 16), dtype=torch.float32, device=dev)
+    _check("rows", rows, torch.float32, (ids.shape[0], 16), dev)
     _launch("K8_bwd_flat", F.data_ptr(), ids.data_ptr(), starts.data_ptr(),
             rays.data_ptr(), pix.data_ptr(), tbound.data_ptr(),
             outs.data_ptr(), g.data_ptr(), rows.data_ptr(), n_tiles, e_view,
@@ -791,25 +786,64 @@ def raster_bwd_flat(F, ids, starts, rays, pix, tbound, outs, g, *,
     return rows
 
 
+def raster_bwd_flat(F, ids, starts, rays, pix, tbound, outs, g, *,
+                    chunk: int, width: int, with_dist: bool):
+    """K8: rows [B*E, 16] per flat slot (the median channel is not
+    differentiated); rows of chunks the forward skipped and of pads are 0.
+    The rows of chunks no tile owns are 0 in the plain version and left
+    unwritten by the kernel: K9 does not read them."""
+    if not _on_cuda(F):
+        return raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound,
+                                     outs, g, chunk=chunk, width=width,
+                                     with_dist=with_dist)
+    rows = torch.empty((ids.shape[0], 16), dtype=torch.float32,
+                       device=F.device)
+    return _launch_bwd_flat(rows, F, ids, starts, rays, pix, tbound, outs, g,
+                            chunk, width, with_dist)
+
+
 # ---------------------------------------------------------------------------
-# K9: scatter-add of every flat slot's row
+# K9: scatter-add of the owned, non-pad flat slots' rows
 # ---------------------------------------------------------------------------
 
-def scatter_rows_flat_plain(rows, ids, n_rows: int):
-    """Plain version of K9: dF[ids[j]] += rows[j] for every slot j."""
-    return rows.new_zeros((n_rows, 16)).index_add_(0, ids.long(), rows)
+def _flat_summed_slots(ids, starts, n_rows: int):
+    """[B*E] bool: the flat slots K9 sums, those some tile owns (slot j of
+    view v with j < starts[v, T]) whose id is not the view's dummy row
+    (v + 1) * n_rows / B - 1."""
+    n_views = starts.shape[0]
+    e_view, r_view = ids.shape[0] // n_views, n_rows // n_views
+    j = torch.arange(e_view, device=ids.device)
+    owned = j[None, :] < starts[:, -1:].long()
+    pad = (torch.arange(1, n_views + 1, device=ids.device)[:, None] * r_view
+           - 1)
+    return (owned & (ids.reshape(n_views, e_view).long() != pad)).reshape(-1)
 
 
-def scatter_rows_flat(rows, ids, n_rows: int):
-    """K9: rows [S, 16], ids [S] int32 -> dF [n_rows, 16] (pads add into
-    their view's dummy row N)."""
+def scatter_rows_flat_plain(rows, ids, starts, n_rows: int):
+    """Plain version of K9: dF[ids[j]] += rows[j] for the slots of
+    ``_flat_summed_slots``; no other row is read."""
+    keep = _flat_summed_slots(ids, starts, n_rows)
+    return rows.new_zeros((n_rows, 16)).index_add_(0, ids[keep].long(),
+                                                   rows[keep])
+
+
+def scatter_rows_flat(rows, ids, starts, n_rows: int):
+    """K9: rows [B*E, 16], ids [B*E] int32, starts [B, T+1] int32 -> dF
+    [n_rows, 16] (B views of n_rows / B rows each): the rows of the slots
+    some tile owns, pads (each view's dummy row) excepted, summed by id."""
     if not _on_cuda(rows):
-        return scatter_rows_flat_plain(rows, ids, n_rows)
+        return scatter_rows_flat_plain(rows, ids, starts, n_rows)
     dev = rows.device
     n_slots = ids.shape[0]
+    n_views, tp1 = starts.shape
     _check("rows", rows, torch.float32, (n_slots, 16), dev)
     _check("ids", ids, torch.int32, (n_slots,), dev)
+    _check("starts", starts, torch.int32, (n_views, tp1), dev)
+    if n_slots % n_views or n_rows % n_views:
+        raise ValueError(f"{n_slots} slots and {n_rows} rows must split "
+                         f"evenly over {n_views} views")
     dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=dev)
     _launch("K9_scatter_rows_flat", rows.data_ptr(), ids.data_ptr(),
-            dF.data_ptr(), n_slots, _stream(rows))
+            starts.data_ptr(), dF.data_ptr(), n_views, n_slots // n_views,
+            tp1 - 1, n_rows // n_views, _stream(rows))
     return dF

@@ -230,7 +230,8 @@ def test_flat_write_mode_vs_pallas(rng, tile_h, chunk, with_dist):
     rows, trimmed = _flat_model(*args, **kw)
     np.testing.assert_array_equal(trimmed.numpy(), ft.counts.numpy())
     assert int((trimmed % chunk != 0).sum()) > 0      # tiles end in pads
-    _assert_sums(kernels.scatter_rows_flat_plain(rows, ft.flat_ids, n1), ref)
+    _assert_sums(kernels.scatter_rows_flat_plain(rows, ft.flat_ids,
+                                                 ft.starts[None], n1), ref)
 
     a64 = [a.double() if a.is_floating_point() else a for a in args]
     r64 = _flat_model(*a64, **kw)[0]

@@ -174,7 +174,8 @@ def test_flat_kernels_plain_vs_jax(rng, budget):
         *targs, tb, out, torch.tensor(g), chunk=CHUNK, width=W,
         with_dist=True)
     assert bool((rows.reshape(-1, CHUNK, 16)[owned:] == 0).all())
-    dF = kernels.scatter_rows_flat_plain(rows, tx["ids"], tx["F"].shape[0])
+    dF = kernels.scatter_rows_flat_plain(rows, tx["ids"], tx["starts"],
+                                         tx["F"].shape[0])
     jdF = np.asarray(jdF)[0]
     np.testing.assert_allclose(dF.numpy(), jdF,
                                atol=2e-3 * np.abs(jdF).max())
@@ -182,19 +183,25 @@ def test_flat_kernels_plain_vs_jax(rng, budget):
 
 
 def test_scatter_rows_flat_plain_vs_jax(rng):
-    """K9's plain version against _scatter_rows_flat on random rows (pads
-    add into the dummy row N)."""
+    """K9's plain version against _scatter_rows_flat on random rows.  K9
+    reads only the rows of owned slots that are not pads; JAX sums every
+    slot, so it gets the same random rows with those others set to 0 (as
+    its K8 makes them), and the dummy row N is 0 in both."""
     _, tx = _flat_inputs(rng, BUDGETS["drop-free"])
-    ids = tx["ids"]
+    ids, starts = tx["ids"], tx["starts"]
     n_rows = tx["F"].shape[0]
-    nc = ids.shape[0] // CHUNK
-    dFg = rng.normal(size=(nc, 16, CHUNK)).astype(np.float32)
+    rows = torch.tensor(rng.normal(size=(ids.shape[0], 16))
+                        .astype(np.float32))
+    keep = kernels._flat_summed_slots(ids, starts, n_rows)
+    assert 0 < int(keep.sum()) < int(starts[0, -1]) < ids.shape[0]
+    zeroed = torch.where(keep[:, None], rows, 0.0)
+    dFg = zeroed.reshape(-1, CHUNK, 16).transpose(1, 2)
     ref = np.asarray(pallas_raster._scatter_rows_flat(
-        jnp.asarray(dFg), jnp.asarray(ids.numpy()), n_rows))
-    rows = torch.tensor(dFg).transpose(1, 2).reshape(-1, 16)
-    out = kernels.scatter_rows_flat_plain(rows, ids, n_rows)
+        jnp.asarray(dFg.numpy()), jnp.asarray(ids.numpy()), n_rows))
+    out = kernels.scatter_rows_flat_plain(rows, ids, starts, n_rows)
     np.testing.assert_allclose(out.numpy(), ref,
                                atol=1e-5 * max(1.0, np.abs(ref).max()))
+    assert not ref[-1].any() and not out[-1].any()
 
 
 @pytest.mark.parametrize("posed", [False, True])

@@ -63,10 +63,10 @@ def _surfels(xyz, scales, opac):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(p_tile: int, chunk: int, flags: bool):
-    """numpy inputs of one case and JAX's (out, tbound) on them; ``flags``
-    turns on both the median and the distortion term."""
-    rng = np.random.default_rng(p_tile * 1000 + chunk * 10 + flags)
+def _case_inputs(p_tile: int, chunk: int, seed: int):
+    """numpy (F, lists, counts, rays, pix) of one scene: tile 0 of count 0,
+    tile 1 of count K, tile 2 of count K led by the opaque stack."""
+    rng = np.random.default_rng(seed)
     tile_h, tile_w = TILE[p_tile]
     theta = rng.uniform(-np.pi, np.pi, N_SCENE)
     xyz = np.stack([7 * np.cos(theta), 7 * np.sin(theta),
@@ -103,19 +103,27 @@ def _case(p_tile: int, chunk: int, flags: bool):
         others = rng.permutation(np.setdiff1d(np.arange(N_SCENE), rest))
         lists[t] = np.concatenate([head, rest, others])[:k_cap]
         counts[t] = k_cap
-    rays, pix = tiles.rays_t.numpy(), tiles.pix_t.numpy()
+    return (F.numpy(), lists, counts, tiles.rays_t.numpy(),
+            tiles.pix_t.numpy())
 
-    Fg = pallas_raster._gather_features(jnp.asarray(F.numpy())[None],
+
+@functools.lru_cache(maxsize=None)
+def _case(p_tile: int, chunk: int, flags: bool):
+    """numpy inputs of one case and JAX's (out, tbound) on them; ``flags``
+    turns on both the median and the distortion term."""
+    inputs = _case_inputs(p_tile, chunk, p_tile * 1000 + chunk * 10 + flags)
+    F, lists, counts, rays, pix = inputs
+    Fg = pallas_raster._gather_features(jnp.asarray(F)[None],
                                         jnp.asarray(lists)[None])
     out, tbound = pallas_raster._fwd_call(
         Fg, jnp.asarray(counts), jnp.asarray(rays), jnp.asarray(pix),
         chunk=chunk, width=W, with_median=flags, with_dist=flags)
-    inputs = (F.numpy(), lists, counts, rays, pix)
     return inputs, (np.asarray(out), np.asarray(tbound))
 
 
 def _fwd_segments(F, lists, counts, rays, pix, *, chunk: int, width: int,
-                  with_median: bool, with_dist: bool, seg: int = 32):
+                  with_median: bool, with_dist: bool, seg: int = 32,
+                  composited=None):
     """K1's schedule in plain PyTorch: each chunk the tile composites (the
     tile-level exit of ``kernels.raster_fwd_plain``) is cut into segments
     of ``seg`` slots.  Pass 1 reduces each segment, from T = 1, to its
@@ -123,7 +131,9 @@ def _fwd_segments(F, lists, counts, rays, pix, *, chunk: int, width: int,
     B = sum wl (m Al_pre - Dl_pre), wl = alpha Tl; the combine runs over
     the segments in order from the carried state; the median is the depth
     of the first slot of the crossing segment (T0 > 0.5 >= T0 P) with
-    T0 Tl (1 - alpha) <= 0.5, or of its last slot.  Slots past the count
+    T0 Tl (1 - alpha) <= 0.5, or of its last slot.  Slots past the count,
+    or past ``composited`` [T] where given (K7's count trimmed to the last
+    slot of non-zero opacity; the chunks reached still follow the count),
     are not composited.  Returns (out, tbound) as the plain version."""
     n_tiles, k_cap = lists.shape
     n_chunks = k_cap // chunk
@@ -146,7 +156,8 @@ def _fwd_segments(F, lists, counts, rays, pix, *, chunk: int, width: int,
         Fc = F[lists[:, i * chunk:(i + 1) * chunk].long()]
         geo = kernels._splat_geometry(Fc, rays, pix, width)
         slot = i * chunk + torch.arange(chunk)
-        alpha = torch.where((slot[None, :] < counts[:, None].long())[:, None],
+        n_comp = counts if composited is None else composited
+        alpha = torch.where((slot[None, :] < n_comp[:, None].long())[:, None],
                             geo["alpha"], 0.0)
         m = segs(geo["m"].expand_as(alpha))
         # pass 1
