@@ -70,7 +70,21 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      each kernel's launch count and the rendered depth of the result,
      compares the four reductions on one pool, and times one optimize
      iteration's forward + backward under the tiled and the flat layout
-     (one view and 3 views) and under scatter_tps 1 and 8.
+     (one view and 3 views) and under scatter_tps 1 and 8;
+  4. runs a sequence, ``[slam]``: 12 sweeps of the same street canyon,
+     200,000 points each in the KITTI sensor's vertical field of view,
+     1.0 m apart along x, through ``Preprocessor``
+     and ``SLAM.process`` with configs/kitti/kitti.yaml as it is
+     (gsaligner tracking, keyframes at 5 m or fitness 0.3, ranksum); it
+     prints frames/s, ms per frame without a keyframe update, the
+     keyframe updates' and target renders' ms, the profiler's report,
+     each frame's fitness and the odometry's error against GT, and fails
+     if a tracked position is more than 0.15 m off GT, if K1, K2 or K3
+     did not launch over the sequence or K1 not in a target render, if
+     one ``gauss_newton_align`` synchronizes with the host (run under
+     ``torch.cuda.set_sync_debug_mode("error")``), or if ``save_results``
+     does not write cfg.yaml, odom.txt, graph.yaml and a PLY per submap
+     holding its surfels.
 
 It imports nothing of JAX.  It prints one line per kernel check, the
 kernels' JSON line, the card's name and power limit, and last
@@ -103,6 +117,13 @@ BWD_OPS_PER_PAIR = 131
 H, W = 64, 1024
 N_SURFELS = 100_000
 SEED = 0
+# phase 4: a 10 Hz sensor at 36 km/h, and the JAX odometry test's gate
+# (tests/test_e2e_slam.py)
+SEQ_SWEEPS, SEQ_POINTS, SEQ_STEP_M = 12, 200_000, 1.0
+TRACK_GATE_M = 0.15
+# vertical field of view of the KITTI sensor (Velodyne HDL-64E data
+# sheet: +2.0 to -24.9 degrees), in degrees
+SENSOR_FOV_DEG = (-24.9, 2.0)
 
 
 def fail(msg: str) -> None:
@@ -1513,6 +1534,41 @@ def check_render_batch(scene, params, n_tiles) -> None:
             fail(f"render_batch[{label}] values disagree with single views")
 
 
+def street_world(rng, n: int) -> np.ndarray:
+    """[n, 3] points of a street canyon (two facades, cross walls, ground,
+    poles), 120 m along x."""
+    a = n // 5
+    x = rng.uniform(-60, 60, 2 * a)
+    fac = np.stack([x, np.where(np.arange(2 * a) < a, -9.0, 11.0),
+                    rng.uniform(-1.7, 8.0, 2 * a)], -1)
+    y = rng.uniform(-9, 11, a)
+    cross = np.stack([np.where(np.arange(a) < a // 2, -55.0, 58.0), y,
+                      rng.uniform(-1.7, 8.0, a)], -1)
+    g = np.stack([rng.uniform(-60, 60, a), rng.uniform(-9, 11, a),
+                  np.full(a, -1.7)], -1)
+    m = n - 4 * a
+    ang = rng.uniform(-np.pi, np.pi, m)
+    cx = rng.choice([-30.0, -10.0, 15.0, 35.0], m)
+    poles = np.stack([cx + 0.3 * np.cos(ang), 7.0 + 0.3 * np.sin(ang),
+                      rng.uniform(-1.7, 5.0, m)], -1)
+    return np.concatenate([fac, cross, g, poles]).astype(np.float32)
+
+
+def sensor_sweep(rng, x: float, n: int, fov=SENSOR_FOV_DEG) -> np.ndarray:
+    """[n, 3] points of the street canyon that a sensor at (x, 0, 0) sees
+    within its vertical field of view ``fov`` (degrees; None: the whole
+    sphere), in the sensor's frame."""
+    parts, have = [], 0
+    while have < n:
+        p = street_world(rng, n) - np.array([x, 0, 0], np.float32)
+        if fov is not None:
+            el = np.degrees(np.arctan2(p[:, 2], np.hypot(p[:, 0], p[:, 1])))
+            p = p[(el >= fov[0]) & (el <= fov[1])]
+        parts.append(p)
+        have += len(p)
+    return np.concatenate(parts)[:n]
+
+
 def run_slice(dev, rng, overrides=()) -> dict:
     """Phase 3: Mapper.update_model at 64x1024 on a ~100k-surfel pool."""
     from splatloam_tpu_torch.config import load_configuration
@@ -1532,28 +1588,10 @@ def run_slice(dev, rng, overrides=()) -> dict:
     if (pc.image_height, pc.image_width) != (H, W):
         fail("configs/kitti/kitti.yaml is no longer 64x1024")
 
-    def world(n):
-        # street canyon: two facades, cross walls, ground, poles
-        a = n // 5
-        x = rng.uniform(-60, 60, 2 * a)
-        fac = np.stack([x, np.where(np.arange(2 * a) < a, -9.0, 11.0),
-                        rng.uniform(-1.7, 8.0, 2 * a)], -1)
-        y = rng.uniform(-9, 11, a)
-        cross = np.stack([np.where(np.arange(a) < a // 2, -55.0, 58.0), y,
-                          rng.uniform(-1.7, 8.0, a)], -1)
-        g = np.stack([rng.uniform(-60, 60, a), rng.uniform(-9, 11, a),
-                      np.full(a, -1.7)], -1)
-        m = n - 4 * a
-        ang = rng.uniform(-np.pi, np.pi, m)
-        cx = rng.choice([-30.0, -10.0, 15.0, 35.0], m)
-        poles = np.stack([cx + 0.3 * np.cos(ang), 7.0 + 0.3 * np.sin(ang),
-                          rng.uniform(-1.7, 5.0, m)], -1)
-        return np.concatenate([fac, cross, g, poles]).astype(np.float32)
-
     def frame_at(x, idx):
         pose = np.eye(4)
         pose[0, 3] = x
-        pts = world(200_000) - np.array([x, 0, 0], np.float32)
+        pts = street_world(rng, 200_000) - np.array([x, 0, 0], np.float32)
         pts_t = torch.tensor(pts, device=dev)
         K, depth, nimg, valid = _preprocess_device(
             pts_t, torch.ones(len(pts), dtype=torch.bool, device=dev),
@@ -1563,7 +1601,7 @@ def run_slice(dev, rng, overrides=()) -> dict:
 
     frames = [frame_at(0.0, 0), frame_at(1.5, 1)]
     model = LocalModel(cfg, device=dev)
-    seed_pts = torch.tensor(world(N_SURFELS), device=dev)
+    seed_pts = torch.tensor(street_world(rng, N_SURFELS), device=dev)
     seed_n = -seed_pts / torch.linalg.norm(seed_pts, dim=-1, keepdim=True)
     model.surfels, model.adam = S.create_from_cloud(
         seed_pts, seed_n, capacity=1 << int(np.ceil(np.log2(N_SURFELS * 1.3))))
@@ -1646,6 +1684,162 @@ def run_slice(dev, rng, overrides=()) -> dict:
     compare_reductions(cfg, mapper, model, rng)
     launches.update(time_layouts(cfg, mapper, model))
     return launches
+
+
+def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG) -> None:
+    """Phase 4: a LiDAR sequence through Preprocessor + SLAM.process with
+    configs/kitti/kitti.yaml as it is (gsaligner tracking).  ``fov``: the
+    sensor's vertical field of view (sensor_sweep)."""
+    import tempfile
+
+    from splatloam_tpu_torch import profiling
+    from splatloam_tpu_torch.config import TrackingMethod, load_configuration
+    from splatloam_tpu_torch.io.ply import load_surfel_ply
+    from splatloam_tpu_torch.logging_backends import reset_datalogger
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.preprocessing import Preprocessor
+    from splatloam_tpu_torch.slam import SLAM
+    from splatloam_tpu_torch.slam.tracker import gauss_newton_align
+
+    cfg = load_configuration(Path(__file__).parent / "configs" / "kitti"
+                             / "kitti.yaml",
+                             ["logging.enable=false", *overrides])
+    tc = cfg.tracking
+    if (tc.method, tc.keyframe_threshold_distance,
+            tc.keyframe_threshold_fitness, cfg.compute.scatter) != \
+            (TrackingMethod.gsaligner, 5.0, 0.3, "ranksum"):
+        fail("configs/kitti/kitti.yaml no longer tracks with gsaligner at "
+             "5 m / fitness 0.3 over the ranksum reduction")
+    # the sweeps are made before the timed loop
+    rng = np.random.default_rng(SEED)
+    poses, clouds = [], []
+    for i in range(SEQ_SWEEPS):
+        pose = np.eye(4)
+        pose[0, 3] = SEQ_STEP_M * i
+        poses.append(pose)
+        clouds.append(sensor_sweep(rng, SEQ_STEP_M * i, SEQ_POINTS, fov))
+
+    profiling._global_profiler = profiling.Profiler()
+    prof = profiling.get_profiler()
+    reset_datalogger()
+    pre = Preprocessor(cfg, device=dev)
+    slam = SLAM(cfg, device=dev, seed=SEED)
+
+    def timed(fn, times, k1=None):
+        # synchronized host time of each call, and K1's launches in it
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            before = kernels.KERNELS["K1_fwd"].launches
+            t = time.perf_counter()
+            fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if k1 is not None:
+                k1.append(kernels.KERNELS["K1_fwd"].launches - before)
+        return run
+
+    target_ms, target_k1, update_ms = [], [], []
+    slam.tracker.register_keyframe = timed(slam.tracker.register_keyframe,
+                                           target_ms, target_k1)
+    slam.mapper.update_model = timed(slam.mapper.update_model, update_ms)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    frame_ms, fitness, keyframe_frames = [], [], []
+    t0 = time.perf_counter()
+    for i, (cloud, pose) in enumerate(zip(clouds, poses)):
+        n_kf = sum(len(m.keyframes) for m in slam.local_models)
+        t1 = time.perf_counter()
+        with prof.phase("preprocess"):
+            frame = pre(cloud, 0.1 * i, gt_pose=pose)
+        slam.process(frame)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        if i:
+            fitness.append(slam.tracker.aligner.fitness())
+        if sum(len(m.keyframes) for m in slam.local_models) != n_kf:
+            keyframe_frames.append(i)
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    n_kf = sum(len(m.keyframes) for m in slam.local_models)
+    track_ms = [ms for i, ms in enumerate(frame_ms)
+                if i not in keyframe_frames]
+    print(f"[slam] {SEQ_SWEEPS} sweeps of {SEQ_POINTS} points in the "
+          f"vertical field of view {fov} deg, "
+          f"{SEQ_STEP_M} m apart at {cfg.preprocessing.image_height}x"
+          f"{cfg.preprocessing.image_width}: {SEQ_SWEEPS / wall:.3f} "
+          f"frames/s over {wall:.3f} s; {len(track_ms)} frames without a "
+          f"keyframe update {np.mean(track_ms):.3f} ms each "
+          f"({[round(ms, 3) for ms in track_ms]})", flush=True)
+    print(f"[slam] keyframes {n_kf} at frames {keyframe_frames}, submaps "
+          f"{len(slam.local_models)}, active surfels "
+          f"{[m.no_gaussians for m in slam.local_models]}, keyframe updates "
+          f"{[round(ms, 3) for ms in update_ms]} ms, target renders "
+          f"{[round(ms, 3) for ms in target_ms]} ms with K1 launches "
+          f"{target_k1}", flush=True)
+    print(f"[slam] fitness of frames 1-{SEQ_SWEEPS - 1} "
+          f"{[round(f, 4) for f in fitness]}")
+    print(f"[slam] launches over the sequence {launches}")
+    print("[slam] profiler report:\n" + prof.report(), flush=True)
+
+    gt = np.stack(poses)
+    est = np.stack(slam.world_T_odom)
+    t_err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=-1)
+    cos = (np.trace(np.einsum("nji,njk->nik", est[:, :3, :3],
+                              gt[:, :3, :3]), axis1=1, axis2=2) - 1) / 2
+    r_err = np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+    print(f"[slam] world_T_odom against GT: max translation error "
+          f"{t_err.max():.4f} m (gate {TRACK_GATE_M}), max rotation error "
+          f"{r_err.max():.4f} deg; per frame (x, y, z) off GT "
+          f"{np.round(est[:, :3, 3] - gt[:, :3, 3], 4).tolist()}", flush=True)
+    if len(est) != SEQ_SWEEPS or t_err.max() > TRACK_GATE_M:
+        fail(f"tracked positions off GT by up to {t_err.max():.4f} m")
+    for k in ("K1_fwd", "K2_bwd", "K3_ranksum"):
+        if launches[k] == 0:
+            fail(f"{k} was not launched over the sequence")
+    if not target_k1 or min(target_k1) == 0:
+        fail(f"K1 did not launch in every target render: {target_k1}")
+
+    # one GN solve on the last frame, with every host synchronization an
+    # error; T and the fitness are read after it
+    aligner = slam.tracker.aligner
+    depth, pts, normals, valid, K, h, w = aligner._target
+    ap = aligner.ap
+    T0 = torch.eye(4, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T, fit = gauss_newton_align(
+            T0, *aligner._source, depth, pts, normals, valid, K, h, w,
+            num_iterations=ap.num_iterations, huber_delta=ap.huber_delta,
+            max_corr_dist=ap.max_correspondence_dist,
+            inlier_threshold=ap.inlier_threshold, damping=ap.damping,
+            corr_factor_init=ap.corr_factor_init,
+            corr_decay_iters=ap.corr_decay_iters,
+            convergence_tol=ap.convergence_tol,
+            lambda_range=ap.lambda_range or 0.0)
+    except RuntimeError as e:
+        fail(f"gauss_newton_align synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not bool(torch.isfinite(T).all()) or not 0.0 <= float(fit) <= 1.0:
+        fail("gauss_newton_align under the sync check gave no pose")
+    print(f"[slam] gauss_newton_align ran {ap.num_iterations} iterations "
+          f"under torch.cuda.set_sync_debug_mode('error'): no host sync, "
+          f"fitness {float(fit):.4f}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        slam.cfg.output.folder = tmp
+        out = slam.save_results()
+        for name in ("cfg.yaml", "odom.txt", "graph.yaml"):
+            if not (out / name).is_file():
+                fail(f"save_results wrote no {name}")
+        for i, m in enumerate(slam.local_models):
+            xyz = load_surfel_ply(out / "models" / f"{i:04d}.ply")[0]
+            if len(xyz) != m.no_gaussians:
+                fail(f"submap {i}: {len(xyz)} surfels in its PLY, "
+                     f"{m.no_gaussians} in the pool")
+        print(f"[slam] save_results: cfg.yaml, odom.txt, graph.yaml and "
+              f"{len(slam.local_models)} PLYs read back", flush=True)
 
 
 def check_rerender(mapper, frame, tag) -> None:
@@ -1977,10 +2171,13 @@ def main() -> int:
     t3 = time.perf_counter()
     launches = run_slice(dev, rng)
     t4 = time.perf_counter()
-    # the host-bound phases 2 and 3 follow the host's pace, which differs
+    run_sequence(dev)
+    t5 = time.perf_counter()
+    # the host-bound phases 2 to 4 follow the host's pace, which differs
     # between machines
     print(f"[time] build {t1 - t0:.1f} s, phase 1 {t2 - t1:.1f} s, phase 2 "
-          f"{t3 - t2:.1f} s, phase 3 {t4 - t3:.1f} s", flush=True)
+          f"{t3 - t2:.1f} s, phase 3 {t4 - t3:.1f} s, phase 4 "
+          f"{t5 - t4:.1f} s", flush=True)
 
     line = []
     for name, k in kernels.KERNELS.items():

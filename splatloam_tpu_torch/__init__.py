@@ -11,7 +11,11 @@ Layer map:
   ops/        rasterizer (tiled kernel path + eager golden renderer),
               KNN, projection
   model/      surfel pool + masked Adam, cameras, frames, submaps
-  slam/       mapper (densify -> optimize -> prune)
+  slam/       SLAM orchestrator, tracker (Gauss-Newton against the
+              rendered map), mapper (densify -> optimize -> prune)
+  io/         surfel PLY, trajectory files
+  preprocessing, postprocessing (result graph), checkpoint, debug,
+  profiling, logging_backends (the dummy data logger)
 """
 import torch
 

@@ -102,3 +102,50 @@ def invert_T(T: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """[4,4] @ [..., 3] -> [..., 3]."""
     return pts @ T[:3, :3].T + T[:3, 3]
+
+
+# ---------------------------------------------------------------------------
+# se(3) exponential map (tracker update:  T <- exp(dx) @ T)
+# ---------------------------------------------------------------------------
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """[..., 3] -> [..., 3, 3] skew-symmetric matrix."""
+    zeros = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        torch.stack([zeros, -w[..., 2], w[..., 1]], dim=-1),
+        torch.stack([w[..., 2], zeros, -w[..., 0]], dim=-1),
+        torch.stack([-w[..., 1], w[..., 0], zeros], dim=-1),
+    ], dim=-2)
+
+
+def exp_se3(xi: torch.Tensor) -> torch.Tensor:
+    """[..., 6] twist (v, w) -> [..., 4, 4] SE(3) matrix.
+
+    Rodrigues with Taylor branches below theta = 1e-5; the divisions of
+    the branch not taken are guarded so neither yields NaN.
+    """
+    v, w = xi[..., :3], xi[..., 3:]
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)[..., None]
+    W = hat(w)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    theta2 = theta * theta
+    small = theta < 1e-5
+    one = torch.ones_like(theta)
+    a = torch.where(small, 1.0 - theta2 / 6.0,
+                    torch.sin(theta) / torch.where(small, one, theta))
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / torch.where(small, one,
+                                                           theta2))
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta))
+                    / torch.where(small, one, theta2 * theta))
+    R = eye + a * W + b * W2
+    V = eye + b * W + c * W2
+    t = (V @ v[..., None])[..., 0]
+    top = torch.cat([R, t[..., None]], dim=-1)
+    # the last row of eye(4), made on the device: no host-to-device copy,
+    # so the tracker's loop runs with no synchronization
+    bottom = torch.eye(4, dtype=xi.dtype, device=xi.device)[3:].expand(
+        *top.shape[:-2], 1, 4)
+    return torch.cat([top, bottom], dim=-2)

@@ -32,7 +32,12 @@ class LocalModel:
 
     def insert_keyframe(self, frame: Frame) -> None:
         self.keyframes.append(frame)
-        self._append_kf_stack(frame)
+        if self.kf_stack is None and len(self.keyframes) > 1:
+            # keyframes restored without a stack (load_checkpoint): stage
+            # them all, not only the new one
+            self.rebuild_kf_stack()
+        else:
+            self._append_kf_stack(frame)
 
     def _append_kf_stack(self, frame: Frame) -> None:
         """Incremental keyframe stack on the device, grown by buckets of

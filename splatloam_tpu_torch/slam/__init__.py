@@ -1,0 +1,1 @@
+from .slam import SLAM  # noqa: F401

@@ -28,6 +28,7 @@ import torch
 from ..config import Configuration
 from ..device import resolve_device
 from ..geometry import se3, spherical
+from ..logging_backends import get_datalogger
 from ..logging_utils import get_logger
 from ..model import surfels as S
 from ..model.camera import Camera
@@ -365,6 +366,8 @@ class Mapper:
         self.generator.manual_seed(seed)
         self.last_ema: torch.Tensor | None = None
         self.last_iters = 0
+        # the last densify's sampled pixels [H, W] bool
+        self._last_densify_mask: torch.Tensor | None = None
 
     def register_model(self, model: LocalModel) -> None:
         if model.device != self.device:
@@ -431,11 +434,15 @@ class Mapper:
             progs = self.programs_for(h, w, model.capacity)
 
         with prof.phase("map.densify"):
-            model.surfels, model.adam, n_new, _ = progs.densify(
+            model.surfels, model.adam, n_new, sampled = progs.densify(
                 model.surfels, model.adam, cam, self._gumbel(h * w),
                 initialize=initialize_model)
             n_new = int(n_new)
         logger.info(f"Adding {n_new} new gaussians")
+        self._last_densify_mask = sampled
+        if self.cfg.logging.enable:
+            get_datalogger(self.cfg).log_image(
+                "frame/densify_mask", sampled.cpu().numpy().astype(np.float32))
 
         # pad the keyframe count to a multiple of keyframe_capacity
         bucket = max(int(self.cfg.compute.keyframe_capacity), 1)
