@@ -84,7 +84,30 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      one ``gauss_newton_align`` synchronizes with the host (run under
      ``torch.cuda.set_sync_debug_mode("error")``), or if ``save_results``
      does not write cfg.yaml, odom.txt, graph.yaml and a PLY per submap
-     holding its surfels.
+     holding its surfels;
+  5. runs the port's command line, ``[cli]``: phase 4's 12 sweeps written
+     to a temporary directory in the KITTI layout (velodyne/%06d.bin as
+     <f4 xyzi, times.txt at 10 Hz, calib.txt with an identity ``Tr:``,
+     poses/00.txt), read back through the KITTI dataset reader (timed,
+     and held to the sweeps and poses written), then ``cli.main(["slam",
+     "configs/kitti/kitti-00-odom.yaml", "--device", "cuda", ...])`` in
+     this process with only the data and output paths overridden (64x1024,
+     gsaligner, 200 iterations), and ``cli.main(["eval_odom", ...])`` on
+     its results; it fails if odom.txt does not hold 12 poses within
+     0.15 m of GT, if the RPE is not finite, if K1, K2 or K3 did not
+     launch in the run, or if cfg.yaml, graph.yaml and a non-empty PLY
+     per submap listed in graph.yaml do not read back.  Then the same sequence under
+     ``slam --supervise`` (``python -m splatloam_tpu_torch``, checkpoints
+     at every keyframe, ``SPLATLOAM_FAULT_AT_FRAME``): it fails unless the
+     child is restarted once, resumes past frame 0 and writes 12 poses
+     within 0.15 m of GT.  Last, the committed VBR bag
+     (tests/fixtures/vbr_seq.bag: ROS1, LZ4 chunks, ouster PointCloud2)
+     through the VBR reader at tests/test_cli_vendor.py's 16x256
+     configuration and gates.  It prints ``native.available()``, the
+     reader's ms per sweep, frames/s over the command's wall time, and,
+     from the command's own phase profile, ms per frame without a
+     keyframe update and ms per keyframe update, and each run's wall
+     time.
 
 It imports nothing of JAX.  It prints one line per kernel check, the
 kernels' JSON line, the card's name and power limit, and last
@@ -94,9 +117,12 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1686,12 +1712,11 @@ def run_slice(dev, rng, overrides=()) -> dict:
     return launches
 
 
-def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG) -> None:
+def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG):
     """Phase 4: a LiDAR sequence through Preprocessor + SLAM.process with
     configs/kitti/kitti.yaml as it is (gsaligner tracking).  ``fov``: the
-    sensor's vertical field of view (sensor_sweep)."""
-    import tempfile
-
+    sensor's vertical field of view (sensor_sweep).  Returns (GT poses,
+    sweeps, frames/s)."""
     from splatloam_tpu_torch import profiling
     from splatloam_tpu_torch.config import TrackingMethod, load_configuration
     from splatloam_tpu_torch.io.ply import load_surfel_ply
@@ -1719,7 +1744,7 @@ def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG) -> None:
         poses.append(pose)
         clouds.append(sensor_sweep(rng, SEQ_STEP_M * i, SEQ_POINTS, fov))
 
-    profiling._global_profiler = profiling.Profiler()
+    profiling.reset_profiler()
     prof = profiling.get_profiler()
     reset_datalogger()
     pre = Preprocessor(cfg, device=dev)
@@ -1840,6 +1865,266 @@ def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG) -> None:
                      f"{m.no_gaussians} in the pool")
         print(f"[slam] save_results: cfg.yaml, odom.txt, graph.yaml and "
               f"{len(slam.local_models)} PLYs read back", flush=True)
+    return poses, clouds, SEQ_SWEEPS / wall
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the command line
+# ---------------------------------------------------------------------------
+
+ODOM_CFG = "configs/kitti/kitti-00-odom.yaml"
+# the first checkpoint is written while the first keyframe after frame 0
+# is processed (frame 6 of these sweeps): the fault comes after it, so
+# the restarted child resumes past frame 0
+FAULT_AT_FRAME = 8
+VBR_CFG = """
+data:
+  dataset_type: vbr
+  cloud_reader:
+    cloud_folder: {bag}
+preprocessing:
+  image_height: 16
+  image_width: 256
+  depth_min: 0.8
+  depth_max: 45.0
+  enable_normal_estimation: false
+  enable_ground_segmentation: false
+mapping:
+  num_iterations: 15
+  densify_percentage: 0.5
+  lmodel_threshold_ngaussians: 30000
+tracking:
+  keyframe_threshold_nframes: 2
+  keyframe_threshold_distance: -1
+  keyframe_threshold_fitness: -1
+compute:
+  initial_capacity: 2048
+  keyframe_capacity: 8
+logging:
+  enable: false
+output:
+  folder: {out}
+  writer: tum
+"""
+
+
+def write_kitti_layout(root: Path, poses, clouds) -> tuple[Path, Path]:
+    """The sweeps in the KITTI odometry layout: sequences/00/velodyne/
+    %06d.bin (<f4 x y z intensity), times.txt (10 Hz), calib.txt (an
+    identity Tr:) and poses/00.txt (3x4 row-major GT poses)."""
+    seq = root / "sequences" / "00"
+    (seq / "velodyne").mkdir(parents=True)
+    for i, cloud in enumerate(clouds):
+        xyzi = np.concatenate([cloud, np.zeros((len(cloud), 1), np.float32)],
+                              axis=1)
+        xyzi.astype("<f4").tofile(seq / "velodyne" / f"{i:06d}.bin")
+    (seq / "times.txt").write_text("".join(f"{0.1 * i:.6f}\n"
+                                           for i in range(len(clouds))))
+    (seq / "calib.txt").write_text("Tr: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+    gt = root / "poses" / "00.txt"
+    gt.parent.mkdir()
+    gt.write_text("".join(" ".join(f"{v:.9f}" for v in T[:3].reshape(-1))
+                          + "\n" for T in poses))
+    return seq, gt
+
+
+def odom_error(odom_file: Path, poses) -> np.ndarray:
+    """Per-frame translation error of a KITTI-format odom.txt against GT."""
+    est = np.loadtxt(odom_file).reshape(-1, 3, 4)
+    if len(est) != len(poses):
+        fail(f"{odom_file} holds {len(est)} poses, not {len(poses)}")
+    return np.linalg.norm(est[:, :, 3] - np.stack(poses)[:, :3, 3], axis=-1)
+
+
+def only_dir(folder: Path) -> Path:
+    dirs = sorted(folder.iterdir())
+    if len(dirs) != 1:
+        fail(f"{folder}: {len(dirs)} result folders, expected 1")
+    return dirs[0]
+
+
+def run_in_group(argv, env, timeout_s: float) -> tuple[int, str]:
+    """Run a command in its own process group (the supervisor and its
+    children); on timeout kill the whole group.  -> (rc, stdout+stderr)."""
+    proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{argv[:5]} did not finish within {timeout_s} s")
+    return proc.returncode, out
+
+
+def run_cli(dev, poses, clouds, inproc_fps: float) -> None:
+    """Phase 5: the sequence of phase 4 through the port's command line
+    on ``dev``."""
+    from splatloam_tpu_torch import cli
+    from splatloam_tpu_torch.config import load_configuration
+    from splatloam_tpu_torch.io import native
+    from splatloam_tpu_torch.io.datasets import get_dataset_reader
+    from splatloam_tpu_torch.io.ply import load_surfel_ply
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.postprocessing import ResultGraph
+    from splatloam_tpu_torch.profiling import get_profiler
+
+    root = Path(__file__).resolve().parent
+    os.chdir(root)      # the config names its parent relative to the root
+    print(f"[cli] native.available() = {native.available()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        seq, gt = write_kitti_layout(tmp, poses, clouds)
+        data = [f"data.cloud_reader.cloud_folder={seq}",
+                f"data.trajectory_reader.filename={gt}"]
+
+        # the dataset reader alone: every sweep and pose as written
+        reader = get_dataset_reader(load_configuration(ODOM_CFG, data))
+        t = time.perf_counter()
+        triples = list(reader)
+        read_ms = (time.perf_counter() - t) * 1e3 / len(triples)
+        if len(triples) != len(clouds) or any(
+                not np.array_equal(c, cloud) or not np.allclose(T, pose)
+                or abs(ts - 0.1 * i) > 1e-9
+                for i, ((c, ts, T), cloud, pose) in
+                enumerate(zip(triples, clouds, poses))):
+            fail("the KITTI reader did not give back the sweeps, stamps "
+                 "and poses written")
+        print(f"[cli] KITTI reader: {len(triples)} sweeps of {len(clouds[0])} "
+              f"points, {read_ms:.3f} ms per sweep (one-file prefetch "
+              f"thread)", flush=True)
+
+        # run 1: slam in this process; its frames are timed by the
+        # command's own phase profile (each frame's "process" phase ends
+        # on the tracked pose, read back to the host; each "map_update"
+        # ends on the pruned count)
+        out1 = tmp / "run1"
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        cli.main(["slam", ODOM_CFG, "--device", dev.type, *data,
+                  f"output.folder={out1}"])
+        wall1 = time.perf_counter() - t
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                    if v.launches}
+        stats = get_profiler().stats
+        frame_s = [a + b for a, b in zip(stats["preprocess"].samples,
+                                         stats["process"].samples)]
+        update_ms = [1e3 * s for s in stats["map_update"].samples]
+        n = len(frame_s)
+        rdir = only_dir(out1)
+        graph = ResultGraph.from_yaml(rdir / "graph.yaml")
+        kf_frames = sorted(round(f.timestamp / 0.1) for f in graph.frames)
+        plain = [1e3 * s for i, s in enumerate(frame_s)
+                 if i not in kf_frames]
+        if n != len(clouds) or len(update_ms) != len(kf_frames):
+            fail(f"the phase profile holds {n} frames and {len(update_ms)} "
+                 f"map updates, not {len(clouds)} and {len(kf_frames)}")
+        print(f"[cli] slam {ODOM_CFG} --device {dev.type}: {n} frames, "
+              f"{n / wall1:.3f} frames/s over the command's {wall1:.3f} s "
+              f"(its frame loop {sum(frame_s):.3f} s); phase 4 ran "
+              f"kitti.yaml, another configuration: {inproc_fps:.3f}",
+              flush=True)
+        print(f"[cli] keyframes at frames {kf_frames} (frame 0 opens the "
+              f"map); {len(plain)} frames without a keyframe update "
+              f"{np.mean(plain):.3f} ms each "
+              f"({[round(ms, 3) for ms in plain]}); keyframe updates "
+              f"{[round(ms, 3) for ms in update_ms]} ms", flush=True)
+        print(f"[cli] launches over the run {launches}", flush=True)
+        for k in ("K1_fwd", "K2_bwd", "K3_ranksum"):
+            if not launches.get(k):
+                fail(f"{k} was not launched in the CLI's run")
+        rdir = only_dir(out1)
+        err = odom_error(rdir / "odom.txt", poses)
+        print(f"[cli] odom.txt against GT: max translation error "
+              f"{err.max():.4f} m (gate {TRACK_GATE_M}); per frame "
+              f"{np.round(err, 4).tolist()}", flush=True)
+        if err.max() > TRACK_GATE_M:
+            fail(f"the CLI's odometry is off GT by up to {err.max():.4f} m")
+        cfg_back = load_configuration(rdir / "cfg.yaml")
+        if (cfg_back.mapping.num_iterations,
+                cfg_back.preprocessing.image_width) != (200, W):
+            fail("cfg.yaml does not hold kitti-00-odom.yaml's settings")
+        plys = sorted((rdir / "models").glob("*.ply"))
+        if [Path(m.filename).name for m in graph.models] != \
+                [p.name for p in plys]:
+            fail(f"graph.yaml's submaps {[m.filename for m in graph.models]}"
+                 f" are not the PLYs written {[p.name for p in plys]}")
+        surfels = [load_surfel_ply(p)[0] for p in plys]
+        if any(len(xyz) == 0 or not np.isfinite(xyz).all()
+               for xyz in surfels):
+            fail("a submap's PLY is empty or holds non-finite positions")
+        t = time.perf_counter()
+        cli.main(["eval_odom", str(rdir)])
+        eval_s = time.perf_counter() - t
+        with open(rdir / "evaluation_rpe.csv") as f:
+            rpe = dict(zip(*[line.strip().split(",") for line in f]))
+        rpe_mean = float(rpe["rpe-mean"])
+        print(f"[cli] eval_odom: RPE {rpe_mean} +- {float(rpe['rpe-stdev'])}"
+              f" in {eval_s:.3f} s; cfg.yaml, graph.yaml and "
+              f"{len(plys)} PLYs read back, surfels "
+              f"{[len(xyz) for xyz in surfels]}", flush=True)
+        if not np.isfinite(rpe_mean):
+            fail("eval_odom gave a non-finite RPE")
+
+        # run 2: supervised, one injected fault, resumed from a checkpoint
+        if not any(0 < k < FAULT_AT_FRAME for k in kf_frames):
+            fail(f"no keyframe between frame 0 and frame {FAULT_AT_FRAME}: "
+                 "the fault would come before the first checkpoint")
+        ckpt = tmp / "ckpt"
+        env = dict(os.environ, SPLATLOAM_FAULT_AT_FRAME=str(FAULT_AT_FRAME))
+        t = time.perf_counter()
+        rc, log = run_in_group(
+            [sys.executable, "-m", "splatloam_tpu_torch", "slam", ODOM_CFG,
+             "--supervise", "--device", dev.type, *data,
+             f"output.folder={tmp / 'run2'}",
+             f"output.checkpoint_dir={ckpt}",
+             "output.checkpoint_every_keyframes=1"], env, 900)
+        wall2 = time.perf_counter() - t
+        flat = re.sub(r"\s+", " ", log)
+        starts = [int(k) for k in re.findall(
+            r"attempt \d+ \(checkpoint at frame (\d+)", flat)]
+        print(f"[cli] slam --supervise, fault at frame {FAULT_AT_FRAME}: "
+              f"rc {rc}, attempts starting at checkpoint frames {starts}, "
+              f"{wall2:.3f} s", flush=True)
+        if rc != 0 or len(starts) != 2 or starts[1] == 0 or \
+                not (ckpt / ".fault_injected").exists():
+            print(log[-6000:])
+            fail("the supervised run did not restart once from a "
+                 "checkpoint past frame 0")
+        err2 = odom_error(only_dir(tmp / "run2") / "odom.txt", poses)
+        print(f"[cli] supervised odom.txt: max translation error "
+              f"{err2.max():.4f} m", flush=True)
+        if err2.max() > TRACK_GATE_M:
+            fail(f"the resumed run is off GT by up to {err2.max():.4f} m")
+
+        # run 3: the committed VBR bag, tests/test_cli_vendor.py's gates
+        vcfg = tmp / "vbr.yaml"
+        vcfg.write_text(VBR_CFG.format(
+            bag=root / "tests" / "fixtures" / "vbr_seq.bag",
+            out=tmp / "run3"))
+        t = time.perf_counter()
+        cli.main(["slam", str(vcfg), "--device", dev.type])
+        wall3 = time.perf_counter() - t
+        rows = np.loadtxt(only_dir(tmp / "run3") / "odom.txt", ndmin=2)
+        print(f"[cli] VBR bag (ROS1, LZ4 chunks) at 16x256: {len(rows)} "
+              f"poses, x {np.round(rows[:, 1], 4).tolist()}, "
+              f"{wall3:.3f} s", flush=True)
+        if rows.shape != (6, 8) or not rows[-1, 1] > 0.5 or \
+                not np.isfinite(rows).all():
+            fail("the VBR bag's run missed tests/test_cli_vendor.py's "
+                 "gates")
+    # the CLI logs every frame: repeat the phase's numbers after the logs
+    print(f"[cli] summary: native.available() {native.available()}, "
+          f"reader {read_ms:.3f} ms/sweep; slam {n / wall1:.3f} frames/s "
+          f"over the command, {np.mean(plain):.3f} ms "
+          f"a frame without an update, updates "
+          f"{[round(ms, 3) for ms in update_ms]} ms, max error "
+          f"{err.max():.4f} m, RPE {rpe_mean}, launches {launches}; wall: "
+          f"slam {wall1:.3f} s, supervised {wall2:.3f} s (attempts at "
+          f"checkpoint frames {starts}, max error {err2.max():.4f} m), VBR "
+          f"{wall3:.3f} s", flush=True)
 
 
 def check_rerender(mapper, frame, tag) -> None:
@@ -2171,13 +2456,15 @@ def main() -> int:
     t3 = time.perf_counter()
     launches = run_slice(dev, rng)
     t4 = time.perf_counter()
-    run_sequence(dev)
+    poses, clouds, fps = run_sequence(dev)
     t5 = time.perf_counter()
-    # the host-bound phases 2 to 4 follow the host's pace, which differs
+    run_cli(dev, poses, clouds, fps)
+    t6 = time.perf_counter()
+    # the host-bound phases 2 to 5 follow the host's pace, which differs
     # between machines
     print(f"[time] build {t1 - t0:.1f} s, phase 1 {t2 - t1:.1f} s, phase 2 "
           f"{t3 - t2:.1f} s, phase 3 {t4 - t3:.1f} s, phase 4 "
-          f"{t5 - t4:.1f} s", flush=True)
+          f"{t5 - t4:.1f} s, phase 5 {t6 - t5:.1f} s", flush=True)
 
     line = []
     for name, k in kernels.KERNELS.items():

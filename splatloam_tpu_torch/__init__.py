@@ -6,16 +6,25 @@ has reached is a hand-written CUDA kernel under ``csrc/``, built at first
 use (ops/rasterizer/kernels.py).  On a CPU tensor each kernel wrapper runs
 the kernel's plain PyTorch version instead.
 
-Layer map:
-  geometry/   SE(3)/quaternion + spherical camera math
-  ops/        rasterizer (tiled kernel path + eager golden renderer),
-              KNN, projection
-  model/      surfel pool + masked Adam, cameras, frames, submaps
+Layer map, from the entry point down:
+  cli.py, __main__.py
+              ``python -m splatloam_tpu_torch slam|eval_odom|
+              generate_dummy_cfg`` (mesh, eval_recon and crop_recon are
+              not ported yet and raise)
+  io/         dataset readers (KITTI, VBR, NCD, Oxford Spires, generic)
+              on point-cloud readers (BIN, PLY, PCD, ROS1/ROS2/MCAP
+              bags) and the native host library (native.py); surfel PLY,
+              trajectory files
   slam/       SLAM orchestrator, tracker (Gauss-Newton against the
               rendered map), mapper (densify -> optimize -> prune)
-  io/         surfel PLY, trajectory files
-  preprocessing, postprocessing (result graph), checkpoint, debug,
-  profiling, logging_backends (the dummy data logger)
+  model/      surfel pool + masked Adam, cameras, frames, submaps
+  ops/        rasterizer (tiled kernel path + eager golden renderer),
+              KNN, projection
+  geometry/   SE(3)/quaternion + spherical camera math
+  eval/       odometry RPE
+  preprocessing, postprocessing (result graph), checkpoint, debug
+  (NaN/Inf and id checks), profiling, logging_backends (dummy,
+  tensorboard, rerun)
 """
 import torch
 

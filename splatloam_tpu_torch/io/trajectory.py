@@ -19,8 +19,8 @@ from . import rotations as rot
 
 
 def read_timestamps(filename: str | Path) -> List[float]:
-    """One float timestamp per non-empty line (the point-cloud readers'
-    helper; those readers are not ported yet)."""
+    """One float timestamp per non-empty line (times.txt; also the
+    point-cloud readers' timestamp file)."""
     with open(filename) as f:
         return [float(line.strip()) for line in f if line.strip()]
 

@@ -1,14 +1,31 @@
-"""Pluggable data loggers: the protocol, the no-op dummy and the singleton.
+"""Pluggable data loggers (ref utils/logging_backends/__init__.py:1-29).
 
-The port's copy of splatloam_tpu/logging_backends/__init__.py.  Only the
-dummy backend is ported: with ``logging.enable`` false every call is a
-no-op; with it true ``get_datalogger`` raises, since the rerun and
-tensorboard backends are not ported yet.
+The port's copy of splatloam_tpu/logging_backends/__init__.py.  The
+protocol mirrors the reference's DataLoggerProtocol (ref
+utils/logging_backends/logging_iface.py:5-23).  With ``logging.enable``
+false every call goes to the no-op dummy; with it true the logger is the
+tensorboard writer (``logger_type`` tensorboard) or rerun (any other
+type), and the dummy when that backend cannot be imported (the rerun-sdk
+is optional), as in the reference.
 """
 from __future__ import annotations
 
 import threading
 from typing import Protocol
+
+import numpy as np
+import torch
+
+from ..logging_utils import get_logger
+
+logger = get_logger("datalogger")
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 class DataLoggerProtocol(Protocol):
@@ -68,7 +85,17 @@ def _build(cfg) -> DataLoggerProtocol:
         return DataLoggerDummy()
     kind = getattr(cfg.logging.logger_type, "value",
                    cfg.logging.logger_type)
-    raise NotImplementedError(
-        f"logging.enable with logger_type {kind!r}: the rerun and "
-        "tensorboard backends are not ported yet (ROADMAP.md, queue 1 "
-        "item 3); set logging.enable to false")
+    if kind == "tensorboard":
+        try:
+            from .tensorboard_logging import DataLoggerTB
+            return DataLoggerTB(cfg)
+        except Exception as e:
+            logger.warning(f"tensorboard backend unavailable ({e}); "
+                           "using dummy logger")
+            return DataLoggerDummy()
+    try:
+        from .rerun_logging import DataLoggerRR
+        return DataLoggerRR(cfg)
+    except Exception as e:
+        logger.debug(f"rerun backend unavailable ({e}); using dummy logger")
+        return DataLoggerDummy()

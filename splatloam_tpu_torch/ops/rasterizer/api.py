@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import debug
 from ...geometry import se3, spherical
 from .eager_ref import rasterize_eager
 
@@ -141,7 +142,9 @@ def render(xyz, scaling, rotation, opacity, T_cw, K,
     """
     chans = rasterize(xyz, scaling, rotation, opacity, T_cw, K, params,
                       tiles=tiles)
-    return _decode(chans, T_cw, K, depth_ratio)
+    pkg = _decode(chans, T_cw, K, depth_ratio)
+    debug.check_outputs(pkg, "render")
+    return pkg
 
 
 def _decode(chans, T_cw, K, depth_ratio) -> dict:
@@ -194,7 +197,9 @@ def render_batch(xyz, scaling, rotation, opacity, T_cw, K,
         chans = {k: torch.stack([c[k] for c in views]) for k in views[0]}
     pkgs = [_decode({k: c[v] for k, c in chans.items()}, T_cw[v], K[v],
                     depth_ratio) for v in range(T_cw.shape[0])]
-    return {k: torch.stack([p[k] for p in pkgs]) for k in pkgs[0]}
+    pkg = {k: torch.stack([p[k] for p in pkgs]) for k in pkgs[0]}
+    debug.check_outputs(pkg, "render_batch")
+    return pkg
 
 
 def prepare_tiles_batch(xyz, scaling, rotation, opacity, T_cw, K,

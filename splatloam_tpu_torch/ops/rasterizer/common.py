@@ -76,7 +76,11 @@ def pack_surfels(xyz: torch.Tensor, scaling: torch.Tensor,
 
     depth = torch.linalg.norm(p, dim=-1)
     theta = torch.atan2(p[:, 1], p[:, 0])
-    phi = torch.atan2(p[:, 2], torch.sqrt(p[:, 0] ** 2 + p[:, 1] ** 2))
+    # clamped so that a point on the z axis (the pool's zero padding rows
+    # under an identity pose) gets a zero gradient, not 0 * inf = NaN,
+    # which autograd's anomaly mode (debug.enable_checks) reports
+    phi = torch.atan2(p[:, 2], torch.sqrt(
+        torch.clamp(p[:, 0] ** 2 + p[:, 1] ** 2, min=1e-30)))
     cx = K[0, 0] * theta + K[0, 2]
     cy = K[1, 1] * phi + K[1, 2]
     center_xy = torch.stack([cx, cy], dim=-1)

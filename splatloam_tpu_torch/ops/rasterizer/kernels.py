@@ -17,7 +17,9 @@ Each wrapper takes the plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel (built at first use from
 ``splatloam_tpu_torch/csrc/*.cu`` with nvcc into ``build/splatloam_tpu_torch``
 and loaded with ctypes) or raises.  ``KERNELS[name].launches`` counts the
-kernel's launches, and nothing else.
+kernel's launches, and nothing else.  Inside ``debug.checked`` each
+wrapper first checks its id lists against the rows they index (one
+reduction and one read), on either device.
 
 Shapes (one view): F [N+1, 16] packed features (row N is the zero pad
 row), lists [T, K] int32 slot ids, counts [T] int32, rays [T, P, 3],
@@ -47,6 +49,7 @@ from pathlib import Path
 
 import torch
 
+from ... import debug
 from .common import (ALPHA_MAX, ALPHA_MIN, FILTER_INV_SQUARE, NEAR,
                      T_EPS)
 
@@ -234,6 +237,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device,
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
+def _check_ids(name: str, ids: torch.Tensor, n_rows: int, lo: int = 0,
+               mask=None) -> None:
+    """Under ``debug.checked``: ids must lie in [lo, n_rows)."""
+    if debug.index_checks_active():
+        debug.check_ids(name, ids, n_rows, lo, mask)
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -375,6 +385,7 @@ def raster_fwd_plain(F, lists, counts, rays, pix, *, chunk: int,
 def raster_fwd(F, lists, counts, rays, pix, *, chunk: int, width: int,
                with_median: bool, with_dist: bool):
     """K1: (out [T, P, 8], tbound [T, P, K/chunk])."""
+    _check_ids("K1 lists", lists, F.shape[0])
     if not _on_cuda(F):
         return raster_fwd_plain(F, lists, counts, rays, pix, chunk=chunk,
                                 width=width, with_median=with_median,
@@ -518,6 +529,7 @@ def raster_bwd(F, lists, counts, rays, pix, tbound, outs, g, *,
     is not differentiated).  Rows past each tile's count are zeros in the
     plain version and left unwritten by the kernel: no reduction reads
     them."""
+    _check_ids("K2 lists", lists, F.shape[0])
     if not _on_cuda(F):
         return raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs,
                                 g, chunk=chunk, width=width,
@@ -548,6 +560,8 @@ def ranksum_rows(rows, pos, ranks, pad_rank, n_rows: int):
     [n_rows, 16], row r = sum of the rows whose id has rank r.  The
     padding id's entries contribute nothing: its row, and every row no
     entry has, is 0."""
+    _check_ids("K3 pos", pos, rows.shape[0])
+    _check_ids("K3 ranks", ranks, n_rows, lo=-1)
     if not _on_cuda(rows):
         return ranksum_rows_plain(rows, pos, ranks, pad_rank, n_rows)
     dev = rows.device
@@ -599,6 +613,7 @@ def raster_bwd_fused(F, lists, counts, rays, pix, tbound, outs, g,
                      with_dist: bool):
     """K5: dF [n_rows, 16] per-surfel feature gradients, K2's rows added
     into the pool by surfel id inside the kernel (dFg is never stored)."""
+    _check_ids("K5 lists", lists, min(F.shape[0], n_rows))
     if not _on_cuda(F):
         return raster_bwd_fused_plain(F, lists, counts, rays, pix, tbound,
                                       outs, g, n_rows, chunk=chunk,
@@ -626,6 +641,10 @@ def scatter_overflow(rows, slots, ids, n_ov, n_rows: int):
     [n_rows, 16].  The kernel gathers each entry's row itself and sums
     runs of equal ids (the plans sort their entries by id) before its
     atomics."""
+    if debug.index_checks_active():
+        live = torch.arange(ids.shape[0], device=ids.device) < n_ov
+        debug.check_ids("K6 slots", slots, rows.shape[0], mask=live)
+        debug.check_ids("K6 ids", ids, n_rows, mask=live)
     if not _on_cuda(rows):
         return scatter_overflow_plain(rows, slots, ids, n_ov, n_rows)
     dev = rows.device
@@ -654,6 +673,7 @@ def scatter_rows_tps(dFg, lists, counts, n_rows: int, tps: int):
     n_tiles, k_cap = lists.shape
     if tps < 1 or n_tiles % tps:
         raise ValueError(f"tps {tps} must divide the tile count {n_tiles}")
+    _check_ids("K4/K10 lists", lists, n_rows)
     if not _on_cuda(dFg):
         return scatter_rows_plain(dFg, lists, counts, n_rows)
     dev = dFg.device
@@ -732,6 +752,7 @@ def raster_fwd_flat(F, ids, starts, rays, pix, *, chunk: int, width: int,
                     with_median: bool, with_dist: bool):
     """K7: (out [B*T, P, 8], tbound [B*E/chunk, P]); a tile that owns no
     chunk comes out as the empty state (zeros, final T = 1)."""
+    _check_ids("K7 ids", ids, F.shape[0])
     if not _on_cuda(F):
         return raster_fwd_flat_plain(F, ids, starts, rays, pix, chunk=chunk,
                                      width=width, with_median=with_median,
@@ -792,6 +813,7 @@ def raster_bwd_flat(F, ids, starts, rays, pix, tbound, outs, g, *,
     differentiated); rows of chunks the forward skipped and of pads are 0.
     The rows of chunks no tile owns are 0 in the plain version and left
     unwritten by the kernel: K9 does not read them."""
+    _check_ids("K8 ids", ids, F.shape[0])
     if not _on_cuda(F):
         return raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound,
                                      outs, g, chunk=chunk, width=width,
@@ -831,6 +853,7 @@ def scatter_rows_flat(rows, ids, starts, n_rows: int):
     """K9: rows [B*E, 16], ids [B*E] int32, starts [B, T+1] int32 -> dF
     [n_rows, 16] (B views of n_rows / B rows each): the rows of the slots
     some tile owns, pads (each view's dummy row) excepted, summed by id."""
+    _check_ids("K9 ids", ids, n_rows)
     if not _on_cuda(rows):
         return scatter_rows_flat_plain(rows, ids, starts, n_rows)
     dev = rows.device

@@ -20,18 +20,20 @@ logger = get_logger("profiling")
 
 
 class PhaseStats:
-    __slots__ = ("count", "total", "ema", "last")
+    __slots__ = ("count", "total", "ema", "last", "samples")
 
     def __init__(self):
         self.count = 0
         self.total = 0.0
         self.ema = None
         self.last = 0.0
+        self.samples: list[float] = []    # every duration, in order
 
     def add(self, dt: float) -> None:
         self.count += 1
         self.total += dt
         self.last = dt
+        self.samples.append(dt)
         self.ema = dt if self.ema is None else 0.1 * dt + 0.9 * self.ema
 
 
@@ -98,3 +100,9 @@ def get_profiler() -> Profiler:
     if _global_profiler is None:
         _global_profiler = Profiler()
     return _global_profiler
+
+
+def reset_profiler() -> None:
+    """Drop the global profiler: the next get_profiler() starts empty."""
+    global _global_profiler
+    _global_profiler = None

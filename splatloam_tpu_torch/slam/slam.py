@@ -140,7 +140,8 @@ class SLAM:
         lmodel.insert_keyframe(frame)
         self.local_models.append(lmodel)
         self.mapper.register_model(lmodel)
-        self.mapper.update_model(frame, initialize_model=True)
+        with self.profiler.phase("map_update"):
+            self.mapper.update_model(frame, initialize_model=True)
         self._debug_check_state()
         self.tracker.register_model(lmodel)
         self.tracker.register_keyframe(frame)

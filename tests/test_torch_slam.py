@@ -436,7 +436,11 @@ def test_profiler_count_report_and_trace(tmp_path):
     assert not off.stats
 
 
-def test_datalogger_is_the_dummy_or_raises():
+def test_datalogger_is_the_dummy_or_raises(tmp_path, monkeypatch):
+    """The dummy when logging is disabled; with it enabled the
+    tensorboard writer when asked, and rerun (here tests/
+    test_rerun_backend.py's fake module) otherwise."""
+    from tests.test_rerun_backend import _make_fake_rerun, _Recorder
     logging_backends.reset_datalogger()
     cfg = pconfig.Configuration()
     cfg.logging.enable = False
@@ -445,9 +449,25 @@ def test_datalogger_is_the_dummy_or_raises():
     assert logging_backends.get_datalogger(cfg) is dlog     # singleton
     logging_backends.reset_datalogger()
     cfg.logging.enable = True
-    with pytest.raises(NotImplementedError, match="rerun"):
-        logging_backends.get_datalogger(cfg)
+    cfg.logging.logger_type = pconfig.DataLoggerType.tensorboard
+    cfg.output.folder = str(tmp_path)
+    from splatloam_tpu_torch.logging_backends.tensorboard_logging import \
+        DataLoggerTB
+    assert isinstance(logging_backends.get_datalogger(cfg), DataLoggerTB)
     logging_backends.reset_datalogger()
+    rec = _Recorder()
+    rr, bp = _make_fake_rerun(rec)
+    monkeypatch.setitem(sys.modules, "rerun", rr)
+    monkeypatch.setitem(sys.modules, "rerun.blueprint", bp)
+    module = "splatloam_tpu_torch.logging_backends.rerun_logging"
+    monkeypatch.delitem(sys.modules, module, raising=False)
+    cfg.logging.logger_type = pconfig.DataLoggerType.rerun
+    dlog = logging_backends.get_datalogger(cfg)
+    assert type(dlog).__name__ == "DataLoggerRR"
+    assert [c[0] for c in rec.calls][:3] == ["init", "send_blueprint",
+                                             "spawn"]
+    logging_backends.reset_datalogger()
+    monkeypatch.delitem(sys.modules, module, raising=False)
 
 
 @pytest.mark.slow
