@@ -48,7 +48,12 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      with a float32/float64 branch tie held apart and then moved off the
      tie and held again; the resident warps per SM of the forward's
      (K1, K7) and the backward's (K2, K5, K8) slot-parallel bodies are
-     printed for both geometries.  Kernel and index_add_ times
+     printed for both geometries; the median's gradient (``MED``): K1's
+     median slot against the plain version's (median and exit ties held
+     apart) and K7's against K1's, K2, K5 and K8 under MED, given those
+     slots, against their plain versions on the same slots, without and
+     with the distortion term, each timed beside itself without MED.
+     Kernel and index_add_ times
      are device time from a CUDA graph replay (``time_ms``: the host
      launches nothing while it runs), each reduction and its index_add_
      with its own zero fill of dF; the reductions also print their
@@ -61,7 +66,10 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      "bucketed" and "flat" (values too) against that render and the
      eager renderer, and
      ``render_batch`` over 3 views (tiled under each scatter mode, and
-     flat) against three single-view renders;
+     flat) against three single-view renders, and the gradients of
+     sum(final T) and sum(median) (tiled ranksum and fused, bucketed,
+     flat) against the eager renderer's, the pixels whose median differs
+     from the eager renderer's held apart;
   3. runs the slice: a synthetic 64x1024 sweep through the device
      preprocessing, a ~100k-surfel pool, and ``Mapper.update_model`` with
      the configs/kitti/kitti.yaml settings on two keyframes (ranksum
@@ -107,7 +115,18 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      reader's ms per sweep, frames/s over the command's wall time, and,
      from the command's own phase profile, ms per frame without a
      keyframe update and ms per keyframe update, and each run's wall
-     time.
+     time;
+  6. meshes, ``[mesh]``: ``cli.main(["mesh", <phase 5's results>,
+     "--device", "cuda", ...])`` with the TSDF, then the grid Poisson
+     method, and ``eval_recon`` of each mesh against the street canyon's
+     world cloud (600,000 points, seed 0) with tools/recon_parity.py's
+     protocol (2 cm downsample, F-score at 0.2 m, truncation 0.5 m,
+     2,000,000 mesh samples); it prints K1's launches in each ``mesh``
+     run, the ms of each keyframe render, the fusion's and the
+     triangulation's time from the command's phase profile, and
+     eval_recon's wall time and metrics, and fails if a mesh is empty or
+     not finite, if K1 did not launch in a ``mesh`` run or if a metric is
+     not finite.
 
 It imports nothing of JAX.  It prints one line per kernel check, the
 kernels' JSON line, the card's name and power limit, and last
@@ -453,6 +472,7 @@ def check_kernels(dev, rng) -> dict:
             kernels, cuda_raster, scene, params, tiles, F, (out, tb), g, dFg,
             dF4, pairs, results["K4_scatter_rows"]))
         time_bwd_with_dist(kernels, params, tiles, F, fwd_dist, g, n_rows)
+        check_med_kernels(kernels, args, params.chunk, g, n_rows)
         check_rows_past_count(kernels, binning, cuda_raster, tiles, dFg,
                               n_rows, RS_GROUP * RS_GPS)
         check_bucketed(dev, kernels, binning, cuda_raster, scene, params, F,
@@ -1228,6 +1248,90 @@ def check_fused_and_overflow(dev, kernels, binning, cuda_raster, tiles,
     return results
 
 
+def check_med_kernels(kernels, args, chunk: int, g, n_rows: int) -> None:
+    """Phase 1: the median's gradient at the main path's shapes, without
+    and with the distortion term.  K1's median slot against the plain
+    version's (pixels in ``median_ties`` and tiles in ``exit_ties``, from
+    the float64 plain version, held apart) and K7's over the same slots as
+    a flat layout against K1's (one body: equal); then K2, K5 and K8 under
+    MED, given K1's (K7's) slots, against their plain versions on the same
+    slots at 2e-3 of the largest row entry (K2's tolerance), and each
+    kernel under MED timed beside itself without it."""
+    F, lists, counts, rays, pix = args
+    real = (torch.arange(lists.shape[1], device=lists.device)[None, :]
+            < counts[:, None])
+    for dist in (False, True):
+        kw = dict(chunk=chunk, width=W, with_median=True, with_dist=dist)
+        out, tb, slot = kernels.raster_fwd(*args, return_slot=True, **kw)
+        _, _, slot_p = kernels.raster_fwd_plain(*args, return_slot=True,
+                                                **kw)
+        out64, tb64 = kernels.raster_fwd_plain(
+            *(a.double() if a.is_floating_point() else a for a in args),
+            **kw)
+        tie = median_ties(kernels, args, tb64, chunk)
+        xtie = exit_ties(kernels, counts, out64, tb64, chunk)
+        keep = ~tie & ~xtie[:, None]
+        n_bad = int(((slot != slot_p) & keep).sum())
+        n_med = int((slot >= 0).sum())
+        ids, starts, tbf = flat_of_tiles(lists, counts, tb, chunk,
+                                         n_rows - 1)[:3]
+        out7, tbf7, slot7 = kernels.raster_fwd_flat(
+            F, ids, starts, rays, pix, return_slot=True, **kw)
+        n7 = int((slot7 != slot).sum())
+        ms1 = time_ms(lambda: kernels.raster_fwd(*args, **kw))
+        print(f"[kernel] K1 median slot (dist {int(dist)}): {n_med} pixels "
+              f"with a median, {n_bad} differ from the plain version's "
+              f"outside {int((~keep).sum())} held apart (median and exit "
+              f"ties); K7's differ from K1's at {n7} pixels; K1 "
+              f"{ms1:.4f} ms", flush=True)
+        if n_bad or n7 or n_med == 0:
+            fail(f"the median slot (dist {int(dist)}): {n_bad} pixels off "
+                 f"the plain version's, K7 off K1's at {n7}, {n_med} "
+                 "medians")
+        bkw = dict(chunk=chunk, width=W, with_dist=dist)
+        bargs = (*args, tb, out, g)
+        args8 = (F, ids, starts, rays, pix, tbf7, out7, g)
+        n_own = int(starts[0, -1])
+        errs, ms = [], []
+        for name, run, plain, sel in (
+                ("K2", lambda m: kernels.raster_bwd(*bargs, med_slot=m,
+                                                    **bkw),
+                 lambda m: kernels.raster_bwd_plain(*bargs, med_slot=m,
+                                                    **bkw),
+                 lambda r: r[real]),
+                ("K5", lambda m: kernels.raster_bwd_fused(
+                    *bargs, n_rows, med_slot=m, **bkw),
+                 lambda m: kernels.raster_bwd_fused_plain(
+                     *bargs, n_rows, med_slot=m, **bkw),
+                 lambda r: r),
+                ("K8", lambda m: kernels.raster_bwd_flat(
+                    *args8, med_slot=m, **bkw),
+                 lambda m: kernels.raster_bwd_flat_plain(
+                     *args8, med_slot=m, **bkw),
+                 lambda r: r[:n_own])):
+            m = slot7 if name == "K8" else slot
+            got, want = sel(run(m)), sel(plain(m))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = 2e-3 * float(want.abs().max())
+            # the median term is there: the rows move with it
+            moved = float((want - sel(plain(None))).abs().max())
+            errs.append(f"{name} {err:.3e} (tol {tol:.3e}, the median "
+                        f"term moves rows by {moved:.3e})")
+            if not (err <= tol and moved > tol):
+                fail(f"{name} under MED (dist {int(dist)}): {err} > {tol} "
+                     f"against the plain version, or the median term "
+                     f"moved nothing ({moved})")
+            ms.append((name, time_ms(lambda: run(m)),
+                       time_ms(lambda: run(None))))
+        print(f"[kernel] backward under MED (dist {int(dist)}) vs the plain "
+              f"version on the same slots: {'; '.join(errs)}", flush=True)
+        print(f"[kernel] MED timing (dist {int(dist)}, graph replay, ms "
+              f"with / without MED): "
+              + ", ".join(f"{n} {a:.4f} / {b:.4f}" for n, a, b in ms),
+              flush=True)
+
+
 def time_bwd_with_dist(kernels, params, tiles, F, fwd_dist, g,
                        n_rows) -> None:
     """Phase 1: K2, K5 and K8 at the main path's shapes with the
@@ -1346,7 +1450,7 @@ def check_bucketed(dev, kernels, binning, cuda_raster, scene, params, F,
     buckets = []
     for args in ((F, bt.lists_b, bt.counts_b, bt.rays_b, bt.pix_b),
                  (F, bt.lists_s, bt.counts_s, bt.rays_s, bt.pix_s)):
-        out, tb = cuda_raster._forward_tiled(*args, static)
+        out, tb, _ = cuda_raster._forward_tiled(*args, static)
         g = torch.tensor(gen.normal(size=tuple(out.shape)).astype(np.float32),
                          device=dev)
         buckets.append((*args, tb, out, g))
@@ -1483,6 +1587,54 @@ def check_render_parity(dev, rng) -> None:
         print(f"[parity] grad {label} vs ranksum render / eager: "
               f"{', '.join(errs)}", flush=True)
     check_render_batch(scene, params, n_tiles)
+    check_channel_gradients(scene, params, n_tiles, ref["median"].detach())
+
+
+def check_channel_gradients(scene, params, n_tiles, med_ref) -> None:
+    """Phase 2: the gradients of sum(final_T) and sum(median) through
+    ``rasterize`` on the cuda backend (tiled ranksum and fused, bucketed,
+    flat) against the eager renderer, at the tests' tolerances (2e-3 x
+    max|g|, pose 3e-3).  A pixel whose median differs from the eager
+    renderer's by more than 1e-4 (a slot chosen apart at T = 0.5) is held
+    apart: both renders' median losses weigh it 0."""
+    from splatloam_tpu_torch.ops.rasterizer.api import rasterize
+    from splatloam_tpu_torch.ops.rasterizer.eager_ref import rasterize_eager
+
+    h, w = params.height, params.width
+    names = ["xyz", "scales", "quat", "opacity", "T_cw"]
+    flat = dict(layout="flat", flat_capacity=n_tiles
+                * params.tile_list_capacity)
+    for label, kw in [("ranksum", {}), ("fused", dict(scatter="fused")),
+                      ("bucketed-fused", dict(layout="bucketed",
+                                              scatter="fused",
+                                              bucket_frac=0.75)),
+                      ("flat", flat)]:
+        p = params._replace(**kw)
+        leaves = [a.clone().requires_grad_(True) for a in scene[:5]]
+        out = rasterize(*leaves, scene[5], p)
+        keep = ((out["median"].detach() - med_ref).abs() <= 1e-4).float()
+        for channel, loss in (
+                ("final_T", lambda c: c["final_T"].sum()),
+                ("median", lambda c: (c["median"] * keep).sum())):
+            g_k = torch.autograd.grad(loss(out), leaves, retain_graph=True)
+            leaves_r = [a.clone().requires_grad_(True) for a in scene[:5]]
+            g_r = torch.autograd.grad(
+                loss(rasterize_eager(*leaves_r, scene[5], h, w)), leaves_r,
+                allow_unused=True)
+            errs = []
+            for name, a, b, rel in zip(names, g_k, g_r, [2e-3] * 4 + [3e-3]):
+                b = torch.zeros_like(a) if b is None else b
+                tol = rel * float(b.abs().max()) + 1e-6
+                err = float((a - b).abs().max())
+                errs.append(f"{name} {err:.2e}/{tol:.2e}")
+                if not err <= tol:
+                    fail(f"{label}: the gradient of sum({channel}) for "
+                         f"{name} is {err} off the eager renderer's "
+                         f"(tol {tol})")
+            held = f", {int((keep == 0).sum())} median pixels held apart" \
+                if channel == "median" else ""
+            print(f"[parity] grad of sum({channel}) {label} vs eager "
+                  f"(err/tol): {', '.join(errs)}{held}", flush=True)
 
 
 def hold_median(name, med, med_ref) -> None:
@@ -1958,9 +2110,10 @@ def run_in_group(argv, env, timeout_s: float) -> tuple[int, str]:
     return proc.returncode, out
 
 
-def run_cli(dev, poses, clouds, inproc_fps: float) -> None:
+def run_cli(dev, poses, clouds, inproc_fps: float, tmp: Path) -> Path:
     """Phase 5: the sequence of phase 4 through the port's command line
-    on ``dev``."""
+    on ``dev``, in the directory ``tmp``.  Returns the results directory
+    of its first run."""
     from splatloam_tpu_torch import cli
     from splatloam_tpu_torch.config import load_configuration
     from splatloam_tpu_torch.io import native
@@ -1973,148 +2126,146 @@ def run_cli(dev, poses, clouds, inproc_fps: float) -> None:
     root = Path(__file__).resolve().parent
     os.chdir(root)      # the config names its parent relative to the root
     print(f"[cli] native.available() = {native.available()}", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        seq, gt = write_kitti_layout(tmp, poses, clouds)
-        data = [f"data.cloud_reader.cloud_folder={seq}",
-                f"data.trajectory_reader.filename={gt}"]
+    seq, gt = write_kitti_layout(tmp, poses, clouds)
+    data = [f"data.cloud_reader.cloud_folder={seq}",
+            f"data.trajectory_reader.filename={gt}"]
 
-        # the dataset reader alone: every sweep and pose as written
-        reader = get_dataset_reader(load_configuration(ODOM_CFG, data))
-        t = time.perf_counter()
-        triples = list(reader)
-        read_ms = (time.perf_counter() - t) * 1e3 / len(triples)
-        if len(triples) != len(clouds) or any(
-                not np.array_equal(c, cloud) or not np.allclose(T, pose)
-                or abs(ts - 0.1 * i) > 1e-9
-                for i, ((c, ts, T), cloud, pose) in
-                enumerate(zip(triples, clouds, poses))):
-            fail("the KITTI reader did not give back the sweeps, stamps "
-                 "and poses written")
-        print(f"[cli] KITTI reader: {len(triples)} sweeps of {len(clouds[0])} "
-              f"points, {read_ms:.3f} ms per sweep (one-file prefetch "
-              f"thread)", flush=True)
+    # the dataset reader alone: every sweep and pose as written
+    reader = get_dataset_reader(load_configuration(ODOM_CFG, data))
+    t = time.perf_counter()
+    triples = list(reader)
+    read_ms = (time.perf_counter() - t) * 1e3 / len(triples)
+    if len(triples) != len(clouds) or any(
+            not np.array_equal(c, cloud) or not np.allclose(T, pose)
+            or abs(ts - 0.1 * i) > 1e-9
+            for i, ((c, ts, T), cloud, pose) in
+            enumerate(zip(triples, clouds, poses))):
+        fail("the KITTI reader did not give back the sweeps, stamps "
+             "and poses written")
+    print(f"[cli] KITTI reader: {len(triples)} sweeps of {len(clouds[0])} "
+          f"points, {read_ms:.3f} ms per sweep (one-file prefetch "
+          f"thread)", flush=True)
 
-        # run 1: slam in this process; its frames are timed by the
-        # command's own phase profile (each frame's "process" phase ends
-        # on the tracked pose, read back to the host; each "map_update"
-        # ends on the pruned count)
-        out1 = tmp / "run1"
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t = time.perf_counter()
-        cli.main(["slam", ODOM_CFG, "--device", dev.type, *data,
-                  f"output.folder={out1}"])
-        wall1 = time.perf_counter() - t
-        launches = {k: v.launches for k, v in kernels.KERNELS.items()
-                    if v.launches}
-        stats = get_profiler().stats
-        frame_s = [a + b for a, b in zip(stats["preprocess"].samples,
-                                         stats["process"].samples)]
-        update_ms = [1e3 * s for s in stats["map_update"].samples]
-        n = len(frame_s)
-        rdir = only_dir(out1)
-        graph = ResultGraph.from_yaml(rdir / "graph.yaml")
-        kf_frames = sorted(round(f.timestamp / 0.1) for f in graph.frames)
-        plain = [1e3 * s for i, s in enumerate(frame_s)
-                 if i not in kf_frames]
-        if n != len(clouds) or len(update_ms) != len(kf_frames):
-            fail(f"the phase profile holds {n} frames and {len(update_ms)} "
-                 f"map updates, not {len(clouds)} and {len(kf_frames)}")
-        print(f"[cli] slam {ODOM_CFG} --device {dev.type}: {n} frames, "
-              f"{n / wall1:.3f} frames/s over the command's {wall1:.3f} s "
-              f"(its frame loop {sum(frame_s):.3f} s); phase 4 ran "
-              f"kitti.yaml, another configuration: {inproc_fps:.3f}",
-              flush=True)
-        print(f"[cli] keyframes at frames {kf_frames} (frame 0 opens the "
-              f"map); {len(plain)} frames without a keyframe update "
-              f"{np.mean(plain):.3f} ms each "
-              f"({[round(ms, 3) for ms in plain]}); keyframe updates "
-              f"{[round(ms, 3) for ms in update_ms]} ms", flush=True)
-        print(f"[cli] launches over the run {launches}", flush=True)
-        for k in ("K1_fwd", "K2_bwd", "K3_ranksum"):
-            if not launches.get(k):
-                fail(f"{k} was not launched in the CLI's run")
-        rdir = only_dir(out1)
-        err = odom_error(rdir / "odom.txt", poses)
-        print(f"[cli] odom.txt against GT: max translation error "
-              f"{err.max():.4f} m (gate {TRACK_GATE_M}); per frame "
-              f"{np.round(err, 4).tolist()}", flush=True)
-        if err.max() > TRACK_GATE_M:
-            fail(f"the CLI's odometry is off GT by up to {err.max():.4f} m")
-        cfg_back = load_configuration(rdir / "cfg.yaml")
-        if (cfg_back.mapping.num_iterations,
-                cfg_back.preprocessing.image_width) != (200, W):
-            fail("cfg.yaml does not hold kitti-00-odom.yaml's settings")
-        plys = sorted((rdir / "models").glob("*.ply"))
-        if [Path(m.filename).name for m in graph.models] != \
-                [p.name for p in plys]:
-            fail(f"graph.yaml's submaps {[m.filename for m in graph.models]}"
-                 f" are not the PLYs written {[p.name for p in plys]}")
-        surfels = [load_surfel_ply(p)[0] for p in plys]
-        if any(len(xyz) == 0 or not np.isfinite(xyz).all()
-               for xyz in surfels):
-            fail("a submap's PLY is empty or holds non-finite positions")
-        t = time.perf_counter()
-        cli.main(["eval_odom", str(rdir)])
-        eval_s = time.perf_counter() - t
-        with open(rdir / "evaluation_rpe.csv") as f:
-            rpe = dict(zip(*[line.strip().split(",") for line in f]))
-        rpe_mean = float(rpe["rpe-mean"])
-        print(f"[cli] eval_odom: RPE {rpe_mean} +- {float(rpe['rpe-stdev'])}"
-              f" in {eval_s:.3f} s; cfg.yaml, graph.yaml and "
-              f"{len(plys)} PLYs read back, surfels "
-              f"{[len(xyz) for xyz in surfels]}", flush=True)
-        if not np.isfinite(rpe_mean):
-            fail("eval_odom gave a non-finite RPE")
+    # run 1: slam in this process; its frames are timed by the
+    # command's own phase profile (each frame's "process" phase ends
+    # on the tracked pose, read back to the host; each "map_update"
+    # ends on the pruned count)
+    out1 = tmp / "run1"
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    cli.main(["slam", ODOM_CFG, "--device", dev.type, *data,
+              f"output.folder={out1}"])
+    wall1 = time.perf_counter() - t
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                if v.launches}
+    stats = get_profiler().stats
+    frame_s = [a + b for a, b in zip(stats["preprocess"].samples,
+                                     stats["process"].samples)]
+    update_ms = [1e3 * s for s in stats["map_update"].samples]
+    n = len(frame_s)
+    rdir = only_dir(out1)
+    graph = ResultGraph.from_yaml(rdir / "graph.yaml")
+    kf_frames = sorted(round(f.timestamp / 0.1) for f in graph.frames)
+    plain = [1e3 * s for i, s in enumerate(frame_s)
+             if i not in kf_frames]
+    if n != len(clouds) or len(update_ms) != len(kf_frames):
+        fail(f"the phase profile holds {n} frames and {len(update_ms)} "
+             f"map updates, not {len(clouds)} and {len(kf_frames)}")
+    print(f"[cli] slam {ODOM_CFG} --device {dev.type}: {n} frames, "
+          f"{n / wall1:.3f} frames/s over the command's {wall1:.3f} s "
+          f"(its frame loop {sum(frame_s):.3f} s); phase 4 ran "
+          f"kitti.yaml, another configuration: {inproc_fps:.3f}",
+          flush=True)
+    print(f"[cli] keyframes at frames {kf_frames} (frame 0 opens the "
+          f"map); {len(plain)} frames without a keyframe update "
+          f"{np.mean(plain):.3f} ms each "
+          f"({[round(ms, 3) for ms in plain]}); keyframe updates "
+          f"{[round(ms, 3) for ms in update_ms]} ms", flush=True)
+    print(f"[cli] launches over the run {launches}", flush=True)
+    for k in ("K1_fwd", "K2_bwd", "K3_ranksum"):
+        if not launches.get(k):
+            fail(f"{k} was not launched in the CLI's run")
+    rdir = only_dir(out1)
+    err = odom_error(rdir / "odom.txt", poses)
+    print(f"[cli] odom.txt against GT: max translation error "
+          f"{err.max():.4f} m (gate {TRACK_GATE_M}); per frame "
+          f"{np.round(err, 4).tolist()}", flush=True)
+    if err.max() > TRACK_GATE_M:
+        fail(f"the CLI's odometry is off GT by up to {err.max():.4f} m")
+    cfg_back = load_configuration(rdir / "cfg.yaml")
+    if (cfg_back.mapping.num_iterations,
+            cfg_back.preprocessing.image_width) != (200, W):
+        fail("cfg.yaml does not hold kitti-00-odom.yaml's settings")
+    plys = sorted((rdir / "models").glob("*.ply"))
+    if [Path(m.filename).name for m in graph.models] != \
+            [p.name for p in plys]:
+        fail(f"graph.yaml's submaps {[m.filename for m in graph.models]}"
+             f" are not the PLYs written {[p.name for p in plys]}")
+    surfels = [load_surfel_ply(p)[0] for p in plys]
+    if any(len(xyz) == 0 or not np.isfinite(xyz).all()
+           for xyz in surfels):
+        fail("a submap's PLY is empty or holds non-finite positions")
+    t = time.perf_counter()
+    cli.main(["eval_odom", str(rdir)])
+    eval_s = time.perf_counter() - t
+    with open(rdir / "evaluation_rpe.csv") as f:
+        rpe = dict(zip(*[line.strip().split(",") for line in f]))
+    rpe_mean = float(rpe["rpe-mean"])
+    print(f"[cli] eval_odom: RPE {rpe_mean} +- {float(rpe['rpe-stdev'])}"
+          f" in {eval_s:.3f} s; cfg.yaml, graph.yaml and "
+          f"{len(plys)} PLYs read back, surfels "
+          f"{[len(xyz) for xyz in surfels]}", flush=True)
+    if not np.isfinite(rpe_mean):
+        fail("eval_odom gave a non-finite RPE")
 
-        # run 2: supervised, one injected fault, resumed from a checkpoint
-        if not any(0 < k < FAULT_AT_FRAME for k in kf_frames):
-            fail(f"no keyframe between frame 0 and frame {FAULT_AT_FRAME}: "
-                 "the fault would come before the first checkpoint")
-        ckpt = tmp / "ckpt"
-        env = dict(os.environ, SPLATLOAM_FAULT_AT_FRAME=str(FAULT_AT_FRAME))
-        t = time.perf_counter()
-        rc, log = run_in_group(
-            [sys.executable, "-m", "splatloam_tpu_torch", "slam", ODOM_CFG,
-             "--supervise", "--device", dev.type, *data,
-             f"output.folder={tmp / 'run2'}",
-             f"output.checkpoint_dir={ckpt}",
-             "output.checkpoint_every_keyframes=1"], env, 900)
-        wall2 = time.perf_counter() - t
-        flat = re.sub(r"\s+", " ", log)
-        starts = [int(k) for k in re.findall(
-            r"attempt \d+ \(checkpoint at frame (\d+)", flat)]
-        print(f"[cli] slam --supervise, fault at frame {FAULT_AT_FRAME}: "
-              f"rc {rc}, attempts starting at checkpoint frames {starts}, "
-              f"{wall2:.3f} s", flush=True)
-        if rc != 0 or len(starts) != 2 or starts[1] == 0 or \
-                not (ckpt / ".fault_injected").exists():
-            print(log[-6000:])
-            fail("the supervised run did not restart once from a "
-                 "checkpoint past frame 0")
-        err2 = odom_error(only_dir(tmp / "run2") / "odom.txt", poses)
-        print(f"[cli] supervised odom.txt: max translation error "
-              f"{err2.max():.4f} m", flush=True)
-        if err2.max() > TRACK_GATE_M:
-            fail(f"the resumed run is off GT by up to {err2.max():.4f} m")
+    # run 2: supervised, one injected fault, resumed from a checkpoint
+    if not any(0 < k < FAULT_AT_FRAME for k in kf_frames):
+        fail(f"no keyframe between frame 0 and frame {FAULT_AT_FRAME}: "
+             "the fault would come before the first checkpoint")
+    ckpt = tmp / "ckpt"
+    env = dict(os.environ, SPLATLOAM_FAULT_AT_FRAME=str(FAULT_AT_FRAME))
+    t = time.perf_counter()
+    rc, log = run_in_group(
+        [sys.executable, "-m", "splatloam_tpu_torch", "slam", ODOM_CFG,
+         "--supervise", "--device", dev.type, *data,
+         f"output.folder={tmp / 'run2'}",
+         f"output.checkpoint_dir={ckpt}",
+         "output.checkpoint_every_keyframes=1"], env, 900)
+    wall2 = time.perf_counter() - t
+    flat = re.sub(r"\s+", " ", log)
+    starts = [int(k) for k in re.findall(
+        r"attempt \d+ \(checkpoint at frame (\d+)", flat)]
+    print(f"[cli] slam --supervise, fault at frame {FAULT_AT_FRAME}: "
+          f"rc {rc}, attempts starting at checkpoint frames {starts}, "
+          f"{wall2:.3f} s", flush=True)
+    if rc != 0 or len(starts) != 2 or starts[1] == 0 or \
+            not (ckpt / ".fault_injected").exists():
+        print(log[-6000:])
+        fail("the supervised run did not restart once from a "
+             "checkpoint past frame 0")
+    err2 = odom_error(only_dir(tmp / "run2") / "odom.txt", poses)
+    print(f"[cli] supervised odom.txt: max translation error "
+          f"{err2.max():.4f} m", flush=True)
+    if err2.max() > TRACK_GATE_M:
+        fail(f"the resumed run is off GT by up to {err2.max():.4f} m")
 
-        # run 3: the committed VBR bag, tests/test_cli_vendor.py's gates
-        vcfg = tmp / "vbr.yaml"
-        vcfg.write_text(VBR_CFG.format(
-            bag=root / "tests" / "fixtures" / "vbr_seq.bag",
-            out=tmp / "run3"))
-        t = time.perf_counter()
-        cli.main(["slam", str(vcfg), "--device", dev.type])
-        wall3 = time.perf_counter() - t
-        rows = np.loadtxt(only_dir(tmp / "run3") / "odom.txt", ndmin=2)
-        print(f"[cli] VBR bag (ROS1, LZ4 chunks) at 16x256: {len(rows)} "
-              f"poses, x {np.round(rows[:, 1], 4).tolist()}, "
-              f"{wall3:.3f} s", flush=True)
-        if rows.shape != (6, 8) or not rows[-1, 1] > 0.5 or \
-                not np.isfinite(rows).all():
-            fail("the VBR bag's run missed tests/test_cli_vendor.py's "
-                 "gates")
+    # run 3: the committed VBR bag, tests/test_cli_vendor.py's gates
+    vcfg = tmp / "vbr.yaml"
+    vcfg.write_text(VBR_CFG.format(
+        bag=root / "tests" / "fixtures" / "vbr_seq.bag",
+        out=tmp / "run3"))
+    t = time.perf_counter()
+    cli.main(["slam", str(vcfg), "--device", dev.type])
+    wall3 = time.perf_counter() - t
+    rows = np.loadtxt(only_dir(tmp / "run3") / "odom.txt", ndmin=2)
+    print(f"[cli] VBR bag (ROS1, LZ4 chunks) at 16x256: {len(rows)} "
+          f"poses, x {np.round(rows[:, 1], 4).tolist()}, "
+          f"{wall3:.3f} s", flush=True)
+    if rows.shape != (6, 8) or not rows[-1, 1] > 0.5 or \
+            not np.isfinite(rows).all():
+        fail("the VBR bag's run missed tests/test_cli_vendor.py's "
+             "gates")
     # the CLI logs every frame: repeat the phase's numbers after the logs
     print(f"[cli] summary: native.available() {native.available()}, "
           f"reader {read_ms:.3f} ms/sweep; slam {n / wall1:.3f} frames/s "
@@ -2125,6 +2276,85 @@ def run_cli(dev, poses, clouds, inproc_fps: float) -> None:
           f"slam {wall1:.3f} s, supervised {wall2:.3f} s (attempts at "
           f"checkpoint frames {starts}, max error {err2.max():.4f} m), VBR "
           f"{wall3:.3f} s", flush=True)
+    return rdir
+
+
+# phase 6: the street canyon's world cloud (recon_parity's world size) and
+# tools/recon_parity.py's evaluation protocol (2 cm downsample, F-score at
+# 0.2 m, truncation 0.5 m both ways, 2,000,000 mesh samples)
+WORLD_POINTS = 600_000
+MESH_SAMPLES = 2_000_000
+RECON_KEYS = ("MAE_accuracy (cm)", "MAE_completeness (cm)",
+              "Chamfer_L1 (cm)", "F-score (%)")
+
+
+def run_mesh(dev, rdir: Path, tmp: Path) -> None:
+    """Phase 6: the port's ``mesh`` (TSDF, then grid Poisson) on phase 5's
+    results directory on ``dev``, and ``eval_recon`` of each mesh against
+    the street canyon's world cloud.  Fails if a mesh is empty or not
+    finite, if K1 did not launch in a ``mesh`` run, or if a metric is not
+    finite."""
+    from splatloam_tpu_torch import cli
+    from splatloam_tpu_torch.eval.recon import load_mesh
+    from splatloam_tpu_torch.io.ply import write_ply
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.profiling import get_profiler
+
+    world = street_world(np.random.default_rng(SEED), WORLD_POINTS)
+    ref = tmp / "world.ply"
+    write_ply(ref, {"x": world[:, 0], "y": world[:, 1], "z": world[:, 2]})
+    summary = []
+    for method, extra in (("tsdf", []),
+                          ("poisson", ["--method", "poisson",
+                                       "--poisson-width", "0.1"])):
+        mesh = tmp / f"mesh_{method}.ply"
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        cli.main(["mesh", str(rdir), "--device", dev.type, "-o", str(mesh),
+                  *extra])
+        wall = time.perf_counter() - t
+        launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                    if v.launches}
+        stats = get_profiler().stats
+        render_ms = [1e3 * x for x in stats["mesh.render"].samples]
+        steps = {k: stats[k].total for k in ("mesh.fuse",
+                                             "mesh.marching_cubes",
+                                             "mesh.poisson") if k in stats}
+        verts, faces = load_mesh(mesh)
+        print(f"[mesh] {method}: {len(verts)} vertices, {len(faces)} faces "
+              f"in {wall:.3f} s; K1 launches {launches.get('K1_fwd', 0)} "
+              f"(all {launches}); keyframe renders "
+              f"{[round(x, 3) for x in render_ms]} ms; "
+              + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in steps.items()),
+              flush=True)
+        if len(faces) == 0 or not np.isfinite(verts).all():
+            fail(f"mesh --method {method} wrote an empty or non-finite mesh")
+        if not launches.get("K1_fwd"):
+            fail(f"K1 was not launched in mesh --method {method}")
+        out = tmp / f"recon_{method}.csv"
+        t = time.perf_counter()
+        cli.main(["eval_recon", str(ref), str(mesh), "--output", str(out),
+                  "--mesh-sample-point", str(MESH_SAMPLES)])
+        wall_e = time.perf_counter() - t
+        with open(out) as f:
+            row = dict(zip(*[line.rstrip("\n").split(",") for line in f]))
+        metrics = {k: float(row[k]) for k in RECON_KEYS}
+        print(f"[mesh] eval_recon {method} against the world cloud "
+              f"({len(world)} points, {MESH_SAMPLES} mesh samples): "
+              f"{wall_e:.3f} s, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()),
+              flush=True)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"eval_recon of the {method} mesh gave {metrics}")
+        summary.append(f"{method}: {len(faces)} faces, K1 "
+                       f"{launches.get('K1_fwd', 0)}, render "
+                       f"{np.mean(render_ms):.3f} ms/keyframe, mesh "
+                       f"{wall:.3f} s, eval_recon {wall_e:.3f} s, "
+                       + ", ".join(f"{k} {v:.4f}"
+                                   for k, v in metrics.items()))
+    # the CLI logs every step: repeat the phase's numbers after the logs
+    print(f"[mesh] summary: {'; '.join(summary)}", flush=True)
 
 
 def check_rerender(mapper, frame, tag) -> None:
@@ -2325,7 +2555,7 @@ def compare_reductions(cfg, mapper, model, rng) -> None:
             chunk=prm.chunk, width=W, with_median=prm.with_median,
             with_dist=prm.with_dist, fused=scatter == "fused")
         targs = (F, tiles.lists, tiles.counts, tiles.rays_t, tiles.pix_t)
-        out, tb = cuda_raster._forward_tiled(*targs, static)
+        out, tb, _ = cuda_raster._forward_tiled(*targs, static)
         g = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32),
                          device=model.device)
         plans = None if tiles.plan is None else (tiles.plan,)
@@ -2458,13 +2688,17 @@ def main() -> int:
     t4 = time.perf_counter()
     poses, clouds, fps = run_sequence(dev)
     t5 = time.perf_counter()
-    run_cli(dev, poses, clouds, fps)
-    t6 = time.perf_counter()
-    # the host-bound phases 2 to 5 follow the host's pace, which differs
+    with tempfile.TemporaryDirectory() as tmp:
+        rdir = run_cli(dev, poses, clouds, fps, Path(tmp))
+        t6 = time.perf_counter()
+        run_mesh(dev, rdir, Path(tmp))
+    t7 = time.perf_counter()
+    # the host-bound phases 2 to 6 follow the host's pace, which differs
     # between machines
     print(f"[time] build {t1 - t0:.1f} s, phase 1 {t2 - t1:.1f} s, phase 2 "
           f"{t3 - t2:.1f} s, phase 3 {t4 - t3:.1f} s, phase 4 "
-          f"{t5 - t4:.1f} s, phase 5 {t6 - t5:.1f} s", flush=True)
+          f"{t5 - t4:.1f} s, phase 5 {t6 - t5:.1f} s, phase 6 "
+          f"{t7 - t6:.1f} s", flush=True)
 
     line = []
     for name, k in kernels.KERNELS.items():

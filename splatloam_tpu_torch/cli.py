@@ -1,14 +1,15 @@
-"""Command-line interface of the port: slam / eval_odom / generate_dummy_cfg.
+"""Command-line interface of the port: slam / mesh / eval_odom /
+eval_recon / crop_recon / generate_dummy_cfg.
 
 The port's counterpart of splatloam_tpu/cli.py (argparse; dotted
 overrides such as ``mapping.num_iterations=200`` go to the config merge
-as there).  ``slam`` and its supervised child run on ``--device``
-(``cuda`` or ``cpu``); without it they run on cuda and raise when no GPU
-is present.  The config's ``device:`` field is ignored, so no YAML moves
-a run onto the CPU.  ``mesh``, ``eval_recon`` and ``crop_recon`` are
-registered and raise ``NotImplementedError`` until eval/recon.py,
-eval/tsdf.py and the meshing of postprocessing.py are ported (ROADMAP.md
-queue 1 item 4).
+as there).  ``slam``, its supervised child and ``mesh`` run on
+``--device`` (``cuda`` or ``cpu``); without it they run on cuda and raise
+when no GPU is present.  The config's ``device:`` field is ignored, so no
+YAML moves a run onto the CPU.  ``eval_odom``, ``eval_recon`` and
+``crop_recon`` are host code (numpy, scipy) and take no device; their
+CSVs are written with the ``csv`` module, in the columns of the JAX CLI's
+pandas CSVs.
 
 The JAX CLI's persistent XLA compilation cache (``_enable_compilation_cache``)
 has no counterpart: the kernels are built once per checkout into
@@ -22,6 +23,7 @@ import csv
 import json
 import os
 import sys
+from datetime import datetime
 from pathlib import Path
 
 import numpy as np
@@ -32,10 +34,6 @@ from .config import (Configuration, TrackingMethod, TrajectoryReaderConfig,
 from .logging_utils import get_logger, set_log_level
 
 logger = get_logger("main")
-
-_NOT_PORTED = ("is not ported yet: it needs eval/recon.py, eval/tsdf.py and "
-               "the meshing of postprocessing.py (ROADMAP.md, queue 1 item "
-               "4); run it with the JAX package's CLI (run.py)")
 
 
 def safe_state(seed: int = 0) -> None:
@@ -196,8 +194,59 @@ def cmd_slam(args, extra: list[str]) -> None:
     logger.info("phase profile:\n" + prof.report())
     results_dir = slam_module.save_results()
     print(f"Completed! Results in {results_dir}\n"
+          f"  mesh:      python -m splatloam_tpu_torch mesh {results_dir}\n"
           f"  eval odom: python -m splatloam_tpu_torch eval_odom "
           f"{results_dir}")
+
+
+def cmd_mesh(args, extra) -> None:
+    from .device import resolve_device
+    device = resolve_device(args.device)
+    safe_state()
+    set_log_level(args.verbose)
+    from .eval.tsdf import save_mesh_ply
+    from .postprocessing import ResultGraph, mesh_poisson, mesh_tsdf
+    from .profiling import get_profiler, reset_profiler
+    reset_profiler()            # the phase profile of this run alone
+
+    input_path = Path(args.input)
+    if input_path.is_dir():
+        graph_filename, graph_dir = input_path / "graph.yaml", input_path
+    else:
+        graph_filename, graph_dir = input_path, input_path.parent
+    graph = ResultGraph.from_yaml(graph_filename)
+    logger.info(f"Loaded {graph}")
+    cfg = load_configuration(graph_dir / "cfg.yaml")
+
+    if args.output is None:
+        mesh_dir = graph_dir / "meshes"
+        mesh_dir.mkdir(parents=True, exist_ok=True)
+        date = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        output = mesh_dir / (date + ".ply")
+    else:
+        output = Path(args.output)
+        output.parent.mkdir(parents=True, exist_ok=True)
+
+    if args.method == "poisson":
+        verts, faces = mesh_poisson(
+            graph, cfg, graph_dir, kf_interval=args.kf_interval,
+            kf_samples=args.kf_samples, min_opacity=args.min_opacity,
+            poisson_depth=args.poisson_depth,
+            poisson_width=args.poisson_width,
+            poisson_min_density=args.poisson_density_min,
+            screen_voxels=args.poisson_screen,
+            max_depth_dist=args.max_depth_dist,
+            use_median_depth=args.median_depth, device=device)
+    else:
+        verts, faces = mesh_tsdf(
+            graph, cfg, graph_dir, voxel_size=args.voxel_size,
+            trunc=args.trunc, kf_interval=args.kf_interval,
+            kf_samples=args.kf_samples, min_opacity=args.min_opacity,
+            max_depth_dist=args.max_depth_dist,
+            use_median_depth=args.median_depth, device=device)
+    save_mesh_ply(output, verts, faces)
+    logger.info("phase profile:\n" + get_profiler().report())
+    logger.info(f"Saved mesh at {output}")
 
 
 def cmd_eval_odom(args, extra) -> None:
@@ -266,18 +315,61 @@ def cmd_eval_odom(args, extra) -> None:
            "rpe-mean": mean, "rpe-stdev": std}
     logger.info(res)
     if args.save:
-        # the columns and values of the JAX CLI's pandas CSV
         out = args.output or (estimate_dir / "evaluation_rpe.csv")
-        with open(out, "w", newline="") as f:
-            writer = csv.DictWriter(f, fieldnames=list(res))
-            writer.writeheader()
-            writer.writerow(res)
+        _write_csv_row(out, res)
         logger.info(f"Saved results in {out}")
     print(f"TLDR: RPE={mean:.5f} +- {std:.5f}")
 
 
-def cmd_not_ported(args, extra) -> None:
-    raise NotImplementedError(f"{args.command} {_NOT_PORTED}")
+def _write_csv_row(filename, row: dict) -> None:
+    """One-row CSV with the columns and values of the JAX CLI's pandas
+    CSV (``DataFrame(row, index=[0]).to_csv(index=False)``)."""
+    with open(filename, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(row))
+        writer.writeheader()
+        writer.writerow(row)
+
+
+def cmd_eval_recon(args, extra) -> None:
+    safe_state()
+    set_log_level(args.verbose)
+    from .eval.recon import evaluate_recon
+    metrics = evaluate_recon(
+        Path(args.reference), Path(args.estimate),
+        down_sample_res=args.down_sample_res, threshold=args.threshold,
+        truncation_acc=args.truncation_acc,
+        truncation_com=args.truncation_com,
+        gt_bbox_mask_on=args.gt_bbox_mask,
+        mesh_sample_point=args.mesh_sample_point,
+        generate_error_map=args.generate_error_map)
+    row = {"mesh": Path(args.estimate).stem, "threshold": args.threshold,
+           "truncation_acc": args.truncation_acc, **metrics}
+    logger.info(row)
+    if args.save:
+        out = args.output or \
+            f"eval_recon_{datetime.now().strftime('%Y-%m-%d_%H-%M-%S')}.csv"
+        _write_csv_row(out, row)
+    print(f"TLDR: Acc={metrics['MAE_accuracy (cm)']:.3f} "
+          f"Com={metrics['MAE_completeness (cm)']:.3f} "
+          f"C-L1={metrics['Chamfer_L1 (cm)']:.3f} "
+          f"F-score={metrics['F-score (%)']:.3f}")
+
+
+def cmd_crop_recon(args, extra) -> None:
+    safe_state()
+    set_log_level(args.verbose)
+    from .eval.recon import crop_union
+    from .io.ply import write_ply
+    cropped = crop_union(Path(args.reference),
+                         [Path(p) for p in args.estimates],
+                         threshold_dist=args.threshold_dist,
+                         mesh_sample_point=args.mesh_sample_point)
+    out = args.output or \
+        f"{Path(args.reference).stem}_crop_" \
+        f"{datetime.now().strftime('%Y-%m-%d_%H-%M-%S')}.ply"
+    write_ply(out, {"x": cropped[:, 0], "y": cropped[:, 1],
+                    "z": cropped[:, 2]})
+    print(f"Cropping complete -> {out}")
 
 
 def cmd_generate_dummy_cfg(args, extra) -> None:
@@ -317,6 +409,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "giving up (budget refills on progress)")
     s.set_defaults(func=cmd_slam)
 
+    m = sub.add_parser("mesh", help="Extract a mesh from SLAM output")
+    m.add_argument("input", help="result folder or graph.yaml")
+    m.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                   help="where the keyframe renders and the TSDF fusion "
+                        "run (default cuda; raises without a GPU)")
+    m.add_argument("--output", "-o", default=None)
+    m.add_argument("--method", choices=["tsdf", "poisson"], default="tsdf")
+    m.add_argument("--voxel-size", type=float, default=0.1)
+    m.add_argument("--trunc", type=float, default=0.3)
+    m.add_argument("--poisson-depth", "-d", type=int, default=10)
+    m.add_argument("--poisson-width", "-w", type=float, default=None)
+    m.add_argument("--poisson-density-min", "-m", type=float, default=0.01)
+    m.add_argument("--poisson-screen", type=float, default=0.0,
+                   help="screened-Poisson decay length in voxels for the "
+                        "grid solver (0 = unscreened); Open3D's octree "
+                        "solver screens natively")
+    m.add_argument("--kf-interval", "-i", type=int, default=-1)
+    m.add_argument("--kf-samples", "-n", type=int, default=5000)
+    m.add_argument("--min-opacity", type=float, default=0.5)
+    m.add_argument("--max-depth-dist", "-D", type=float, default=0.1)
+    m.add_argument("--median-depth", action="store_true")
+    m.add_argument("--verbose", "-v", action="store_true")
+    m.set_defaults(func=cmd_mesh)
+
     e = sub.add_parser("eval_odom", help="Evaluate trajectory RPE")
     e.add_argument("estimate")
     e.add_argument("--reference", default=None)
@@ -329,13 +445,33 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--verbose", "-v", action="store_true")
     e.set_defaults(func=cmd_eval_odom)
 
-    for name, what in (("mesh", "Extract a mesh from SLAM output"),
-                       ("eval_recon", "Evaluate reconstruction metrics"),
-                       ("crop_recon", "Crop reference cloud to the union "
-                        "of estimate meshes")):
-        c = sub.add_parser(name, help=f"{what} (not ported yet)")
-        c.add_argument("args", nargs=argparse.REMAINDER)
-        c.set_defaults(func=cmd_not_ported)
+    r = sub.add_parser("eval_recon", help="Evaluate reconstruction metrics")
+    r.add_argument("reference")
+    r.add_argument("estimate")
+    r.add_argument("--output", default=None)
+    r.add_argument("--down-sample-res", type=float, default=0.02)
+    r.add_argument("--threshold", type=float, default=0.2)
+    r.add_argument("--truncation-acc", type=float, default=0.5)
+    r.add_argument("--truncation-com", type=float, default=0.5)
+    r.add_argument("--gt-bbox-mask", action="store_true", default=True)
+    r.add_argument("--mesh-sample-point", type=int, default=10_000_000)
+    r.add_argument("--generate-error-map", action="store_true",
+                   help="write a heat-colored accuracy-error PLY next to "
+                        "the estimate (stubbed NotImplementedError in the "
+                        "reference)")
+    r.add_argument("--save", action="store_true", default=True)
+    r.add_argument("--verbose", "-v", action="store_true")
+    r.set_defaults(func=cmd_eval_recon)
+
+    c = sub.add_parser("crop_recon", help="Crop reference cloud to the "
+                       "union of estimate meshes")
+    c.add_argument("reference")
+    c.add_argument("estimates", nargs="+")
+    c.add_argument("--output", default=None)
+    c.add_argument("--threshold-dist", type=float, default=1.2)
+    c.add_argument("--mesh-sample-point", type=int, default=10_000_000)
+    c.add_argument("--verbose", "-v", action="store_true")
+    c.set_defaults(func=cmd_crop_recon)
 
     g = sub.add_parser("generate_dummy_cfg",
                        help="Write a default config file")

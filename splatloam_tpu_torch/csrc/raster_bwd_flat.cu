@@ -30,18 +30,22 @@ extern "C" int launch_raster_bwd_flat(const float* F, const int* ids,
                                       const int* starts, const float* rays,
                                       const float* pix, const float* tbound,
                                       const float* outs, const float* g,
-                                      float* rows, int n_tiles, int E,
+                                      const int* med_slot, float* rows,
+                                      int n_tiles, int E,
                                       int tiles_per_view, int C, int P,
                                       float width, float inv_width,
-                                      int with_dist, cudaStream_t stream) {
+                                      int with_dist, int with_median,
+                                      cudaStream_t stream) {
   const splat::SlotLayout L{ids, starts, E, tiles_per_view};
   return splat::launch_bwd<splat::Out::FLAT>(
-      F, L, rays, pix, tbound, outs, g, rows, n_tiles, C, P, width,
-      inv_width, with_dist, stream);
+      F, L, rays, pix, tbound, outs, g, med_slot, rows, n_tiles, C, P,
+      width, inv_width, with_dist, with_median, stream);
 }
 
 // Resident warps per SM at these shapes, or minus the CUDA error code.
 extern "C" int launch_raster_bwd_flat_resident_warps(int P, int C,
-                                                     int with_dist) {
-  return splat::resident_warps<splat::Out::FLAT>(P, C, with_dist);
+                                                     int with_dist,
+                                                     int with_median) {
+  return splat::resident_warps<splat::Out::FLAT>(P, C, with_dist,
+                                                 with_median);
 }

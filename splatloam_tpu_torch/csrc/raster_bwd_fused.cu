@@ -25,17 +25,21 @@ extern "C" int launch_raster_bwd_fused(const float* F, const int* lists,
                                        const int* counts, const float* rays,
                                        const float* pix, const float* tbound,
                                        const float* outs, const float* g,
-                                       float* dF, int n_tiles, int K, int C,
-                                       int P, float width, float inv_width,
-                                       int with_dist, cudaStream_t stream) {
+                                       const int* med_slot, float* dF,
+                                       int n_tiles, int K, int C, int P,
+                                       float width, float inv_width,
+                                       int with_dist, int with_median,
+                                       cudaStream_t stream) {
   const splat::SlotLayout L{lists, counts, K, 0};
   return splat::launch_bwd<splat::Out::FUSED>(
-      F, L, rays, pix, tbound, outs, g, dF, n_tiles, C, P, width,
-      inv_width, with_dist, stream);
+      F, L, rays, pix, tbound, outs, g, med_slot, dF, n_tiles, C, P,
+      width, inv_width, with_dist, with_median, stream);
 }
 
 // Resident warps per SM at these shapes, or minus the CUDA error code.
 extern "C" int launch_raster_bwd_fused_resident_warps(int P, int C,
-                                                      int with_dist) {
-  return splat::resident_warps<splat::Out::FUSED>(P, C, with_dist);
+                                                      int with_dist,
+                                                      int with_median) {
+  return splat::resident_warps<splat::Out::FUSED>(P, C, with_dist,
+                                                  with_median);
 }

@@ -4,11 +4,16 @@
 // slot's row goes (``Out``).
 //
 // Per tile, each slot's gradient row, summed over the tile's pixels: p,
-// gu, gv, n (3 each), opacity, centre depth, cx, cy; the median channel
-// is not differentiated and no gradient flows where alpha is capped at
-// 0.999.  Only the slots the forward composited contribute (live chunks,
-// whose chunk-start T exceeds 1e-4 for some pixel, and slots below the
-// tile's count).
+// gu, gv, n (3 each), opacity, centre depth, cx, cy; no gradient flows
+// where alpha is capped at 0.999.  The median channel is differentiated
+// under MED only: the forward's med_slot [B*T, P] names the slot whose
+// depth m is each pixel's median (-1: none), and pass 2 adds the pixel's
+// median cotangent to that one pair's coefficient on m (the median does
+// not change T, so no carry changes).  The final-T channel gets no term
+// here: over the composited slots alpha + final T = 1, so the wrappers
+// fold its cotangent into alpha's.  Only the slots the forward composited
+// contribute (live chunks, whose chunk-start T exceeds 1e-4 for some
+// pixel, and slots below the tile's count).
 //
 // Bound on the H100: operations (the geometry once and the gradient
 // algebra per composited pixel-slot pair, and the 16-value row sums).
@@ -44,6 +49,8 @@
 // A chunk longer than 256 slots first gets each window's start T from a
 // products-only walk over its earlier windows (a third geometry
 // evaluation for those slots, off the main path).
+// MED stages two more values per pixel (the median cotangent and slot);
+// with MED off the body is the one without the median.
 // Occupancy and balance: the per-pixel cotangents sit in shared memory
 // and the features are read by all lanes at once from L1/L2, so a
 // 64-pixel block takes ~70 KB (Tl is 64 KB of it) and 3 blocks (24 warps)
@@ -81,7 +88,7 @@ enum class Out { ROWS, FUSED, FLAT };
 
 constexpr int SEG = 32;      // slots per segment
 constexpr int NWARP = 8;     // warps per block
-constexpr int NPX = 8;       // staged per-pixel values
+constexpr int NPX = 8;       // staged per-pixel values (MED: 2 more)
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int WSL = NWARP * SEG;   // slots per window
@@ -91,12 +98,13 @@ struct Shape {
   size_t floats;   // dynamic shared memory
 };
 
-inline Shape shape_of(int P, int C, bool dist) {
+inline Shape shape_of(int P, int C, bool dist, bool med) {
   Shape s;
   s.pg = P % 64 == 0 ? 64 : 32;               // pixels per block
   s.npg = P / s.pg;                            // blocks per tile
   s.nwin = (C + WSL - 1) / WSL;                // windows per chunk
-  s.floats = (size_t)(NPX + NWARP * SEG + NWARP * (dist ? 5 : 2) + s.nwin) *
+  s.floats = (size_t)(NPX + (med ? 2 : 0) + NWARP * SEG +
+                      NWARP * (dist ? 5 : 2) + s.nwin) *
              s.pg;
   return s;
 }
@@ -146,7 +154,7 @@ __device__ __forceinline__ float reduce_scatter16(float (&v)[16], int lane) {
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
 }
 
-template <int PPL, bool DIST, Out MODE>
+template <int PPL, bool DIST, bool MED, Out MODE>
 __global__ void __launch_bounds__(NWARP * 32, DIST ? 2 : 3)
 raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
                       const float* __restrict__ rays,
@@ -154,10 +162,12 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
                       const float* __restrict__ tbound,
                       const float* __restrict__ outs,
                       const float* __restrict__ gout,
+                      const int* __restrict__ med_slot,
                       float* __restrict__ dst, int C, int P, float width,
                       float inv_width) {
   constexpr int PG = 32 * PPL;
   constexpr int NCO = DIST ? 5 : 2;
+  constexpr int NPXM = NPX + (MED ? 2 : 0);
   constexpr bool FLAT = MODE == Out::FLAT;
   extern __shared__ float smem[];
   const int npg = P / PG;
@@ -165,9 +175,9 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float* s_px = smem;                          // [NPX, PG] per pixel:
-  // gD, gA, gN (3), gdist, D_total, A_total
-  float* s_tl = s_px + NPX * PG;               // [NWARP, SEG, PG] Tl
+  float* s_px = smem;                          // [NPXM, PG] per pixel:
+  // gD, gA, gN (3), gdist, D_total, A_total (MED: g_median, its slot)
+  float* s_tl = s_px + NPXM * PG;              // [NWARP, SEG, PG] Tl
   float* s_co = s_tl + NWARP * SEG * PG;       // [NWARP, NCO, PG]
   float* s_tw = s_co + NWARP * NCO * PG;       // [nwin, PG] window-start T
 
@@ -215,6 +225,10 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
     s_px[5 * PG + tid] = gp[6];
     s_px[6 * PG + tid] = op[0];
     s_px[7 * PG + tid] = op[1];
+    if (MED) {
+      s_px[8 * PG + tid] = gp[5];
+      s_px[9 * PG + tid] = __int_as_float(med_slot[px0 + tid]);
+    }
   }
   float rx[PPL], ry[PPL], rz[PPL], pu[PPL], pv[PPL];
 #pragma unroll
@@ -390,6 +404,8 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
             float phi = gD * g.m + s_px[1 * PG + p] +
                         (gN0 * f[9] + gN1 * f[10] + gN2 * f[11]);
             float gm = w * gD;
+            if (MED && j == __float_as_int(s_px[9 * PG + p]))
+              gm += s_px[8 * PG + p];
             if (DIST) {
               const float gdist = s_px[5 * PG + p];
               const float A_prev = s_px[7 * PG + p] - w - Wc[k];
@@ -457,43 +473,48 @@ raster_bwd_seg_kernel(const float* __restrict__ F, SlotLayout L,
 
 using BwdKernel = void (*)(const float*, SlotLayout, const float*,
                            const float*, const float*, const float*,
-                           const float*, float*, int, int, float, float);
+                           const float*, const int*, float*, int, int, float,
+                           float);
 
-template <Out MODE>
-BwdKernel pick(int P, int with_dist) {
-  if (P % 64 == 0)
-    return with_dist ? raster_bwd_seg_kernel<2, true, MODE>
-                     : raster_bwd_seg_kernel<2, false, MODE>;
-  return with_dist ? raster_bwd_seg_kernel<1, true, MODE>
-                   : raster_bwd_seg_kernel<1, false, MODE>;
+template <int PPL, Out MODE>
+BwdKernel pick_flags(int with_dist, int with_median) {
+  if (with_median)
+    return with_dist ? raster_bwd_seg_kernel<PPL, true, true, MODE>
+                     : raster_bwd_seg_kernel<PPL, false, true, MODE>;
+  return with_dist ? raster_bwd_seg_kernel<PPL, true, false, MODE>
+                   : raster_bwd_seg_kernel<PPL, false, false, MODE>;
 }
 
-// the kernel for (P, with_dist), its shared memory allowed; returns the
-// CUDA error code
+// the kernel for (P, with_dist, with_median), its shared memory allowed;
+// returns the CUDA error code
 template <Out MODE>
-int prepare(int P, int C, int with_dist, BwdKernel* fn, size_t* smem) {
-  *fn = pick<MODE>(P, with_dist);
-  *smem = shape_of(P, C, with_dist != 0).floats * sizeof(float);
+int prepare(int P, int C, int with_dist, int with_median, BwdKernel* fn,
+            size_t* smem) {
+  *fn = P % 64 == 0 ? pick_flags<2, MODE>(with_dist, with_median)
+                    : pick_flags<1, MODE>(with_dist, with_median);
+  *smem = shape_of(P, C, with_dist != 0, with_median != 0).floats *
+          sizeof(float);
   return (int)cudaFuncSetAttribute(
       *fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
 // Launch over n_tiles tiles of P pixels (P a multiple of 32 up to 256, C
-// a multiple of 32 dividing the tile's slot space); returns the CUDA
-// error code.  ROWS and FLAT zero their rows (dFg [n_tiles, K, 16], rows
-// [B*E, 16]) first when a tile takes more than one block.
+// a multiple of 32 dividing the tile's slot space); med_slot [n_tiles, P]
+// is read with the median only; returns the CUDA error code.  ROWS and
+// FLAT zero their rows (dFg [n_tiles, K, 16], rows [B*E, 16]) first when a
+// tile takes more than one block.
 template <Out MODE>
 int launch_bwd(const float* F, SlotLayout L, const float* rays,
                const float* pix, const float* tbound, const float* outs,
-               const float* g, float* dst, int n_tiles, int C, int P,
-               float width, float inv_width, int with_dist,
-               cudaStream_t stream) {
+               const float* g, const int* med_slot, float* dst, int n_tiles,
+               int C, int P, float width, float inv_width, int with_dist,
+               int with_median, cudaStream_t stream) {
   BwdKernel fn;
   size_t smem;
-  const int err = prepare<MODE>(P, C, with_dist, &fn, &smem);
+  const int err = prepare<MODE>(P, C, with_dist, with_median, &fn, &smem);
   if (err != 0) return err;
   if (n_tiles == 0) return 0;
-  const int npg = shape_of(P, C, with_dist != 0).npg;
+  const int npg = shape_of(P, C, with_dist != 0, false).npg;
   if (MODE != Out::FUSED && npg > 1) {
     const size_t n_rows =
         MODE == Out::FLAT
@@ -504,7 +525,8 @@ int launch_bwd(const float* F, SlotLayout L, const float* rays,
     if (e != cudaSuccess) return (int)e;
   }
   fn<<<n_tiles * npg, NWARP * 32, smem, stream>>>(
-      F, L, rays, pix, tbound, outs, g, dst, C, P, width, inv_width);
+      F, L, rays, pix, tbound, outs, g, med_slot, dst, C, P, width,
+      inv_width);
   return (int)cudaGetLastError();
 }
 
@@ -512,10 +534,10 @@ int launch_bwd(const float* F, SlotLayout L, const float* rays,
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor times warps per block),
 // or minus the CUDA error code.
 template <Out MODE>
-int resident_warps(int P, int C, int with_dist) {
+int resident_warps(int P, int C, int with_dist, int with_median) {
   BwdKernel fn;
   size_t smem;
-  int err = prepare<MODE>(P, C, with_dist, &fn, &smem);
+  int err = prepare<MODE>(P, C, with_dist, with_median, &fn, &smem);
   int blocks = 0;
   if (err == 0)
     err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(

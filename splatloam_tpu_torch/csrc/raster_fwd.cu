@@ -13,18 +13,19 @@
 // layout.
 #include "raster_fwd_seg.cuh"
 
-// P a multiple of 32 up to 256, C a multiple of 32 dividing K.
+// P a multiple of 32 up to 256, C a multiple of 32 dividing K; med_slot
+// [T, P] int32 is written with the median only (the median's slot j, or -1).
 extern "C" int launch_raster_fwd(const float* F, const int* lists,
                                  const int* counts, const float* rays,
                                  const float* pix, float* out, float* tbound,
-                                 int n_tiles, int K, int C, int P,
-                                 float width, float inv_width,
+                                 int* med_slot, int n_tiles, int K, int C,
+                                 int P, float width, float inv_width,
                                  int with_median, int with_dist,
                                  cudaStream_t stream) {
   const splat::SlotLayout L{lists, counts, K, 0};
-  return splat::launch_fwd<false>(F, L, rays, pix, out, tbound, n_tiles, C,
-                                  P, width, inv_width, with_median,
-                                  with_dist, stream);
+  return splat::launch_fwd<false>(F, L, rays, pix, out, tbound, med_slot,
+                                  n_tiles, C, P, width, inv_width,
+                                  with_median, with_dist, stream);
 }
 
 // Resident warps per SM at these shapes, or minus the CUDA error code.

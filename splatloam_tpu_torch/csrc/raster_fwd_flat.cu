@@ -10,7 +10,9 @@
 // [starts[v, t], starts[v, t+1]) of its view's slots.  tbound is 0 for
 // chunks a tile skipped and for the budget chunks past starts[v, T]
 // (which the binning routes to the last tile and no block owns here); a
-// tile that owns no chunk writes the empty state (zeros, T = 1).
+// tile that owns no chunk writes the empty state (zeros, T = 1).  With the
+// median, med_slot [B*T, P] int32 gets the median's slot as an offset from
+// the tile's first flat slot, or -1.
 //
 // Bound on the H100: operations, as K1 (the same arithmetic per
 // pixel-slot pair; the trailing pads are not composited).
@@ -25,15 +27,16 @@
 extern "C" int launch_raster_fwd_flat(const float* F, const int* ids,
                                       const int* starts, const float* rays,
                                       const float* pix, float* out,
-                                      float* tbound, int n_tiles, int E,
+                                      float* tbound, int* med_slot,
+                                      int n_tiles, int E,
                                       int tiles_per_view, int C, int P,
                                       float width, float inv_width,
                                       int with_median, int with_dist,
                                       cudaStream_t stream) {
   const splat::SlotLayout L{ids, starts, E, tiles_per_view};
-  return splat::launch_fwd<true>(F, L, rays, pix, out, tbound, n_tiles, C,
-                                 P, width, inv_width, with_median, with_dist,
-                                 stream);
+  return splat::launch_fwd<true>(F, L, rays, pix, out, tbound, med_slot,
+                                 n_tiles, C, P, width, inv_width,
+                                 with_median, with_dist, stream);
 }
 
 // Resident warps per SM at these shapes, or minus the CUDA error code.

@@ -44,7 +44,12 @@
 //      by its warp for the pixels crossing there, to the first slot with
 //      T0 Tl (1 - alpha) <= 0.5 (the segment's last slot if rounding
 //      leaves none), whose depth m is the median; a pixel whose median
-//      is set (nonzero) takes no other.
+//      is set (nonzero) takes no other.  The walk also writes that
+//      slot's index in the tile's own slots (the list column; in the flat
+//      layout the offset from the tile's first slot) to med_slot [B*T, P]
+//      int32, -1 where the pixel has no median: the backward adds the
+//      median's cotangent at exactly this slot (raster_bwd_seg.cuh), so
+//      the two agree where rounding decides the slot.
 // T is a product of segment products, where the TPU kernel and the plain
 // version sum logs: the same transmittance, rounded in another order, so
 // a pixel whose T sits within rounding of 0.5 (the median's slot) or of
@@ -129,7 +134,8 @@ raster_fwd_seg_kernel(const float* __restrict__ F,
                       int tiles_per_view, const float* __restrict__ rays,
                       const float* __restrict__ pix,
                       float* __restrict__ out, float* __restrict__ tbound,
-                      int C, int P, float width, float inv_width) {
+                      int* __restrict__ med_slot, int C, int P, float width,
+                      float inv_width) {
   constexpr int PG = 32 * PPL;
   const SlotLayout L{ids, meta, slots_per_view, tiles_per_view};
   const int nthr = blockDim.x;
@@ -179,6 +185,7 @@ raster_fwd_seg_kernel(const float* __restrict__ F,
   for (int p = tid; p < P; p += nthr) {
 #pragma unroll
     for (int k = 0; k < NST; ++k) s_st[k * P + p] = k == ST_T ? 1.0f : 0.0f;
+    if (MED) med_slot[(size_t)t * P + p] = -1;
   }
 
   for (int i = 0; i < n_act; ++i) {
@@ -303,7 +310,9 @@ raster_fwd_seg_kernel(const float* __restrict__ F,
                                                  inv_width);
                   Tl[k] *= 1.0f - geo.alpha;
                   if (T0[k] * Tl[k] <= 0.5f || j == a1 - 1) {
-                    s_st[ST_MED * P + g * PG + k * 32 + lane] = geo.m;
+                    const int p = g * PG + k * 32 + lane;
+                    s_st[ST_MED * P + p] = geo.m;
+                    med_slot[(size_t)t * P + p] = w0 + j;
                     todo[k] = false;
                   }
                   more |= todo[k];
@@ -329,8 +338,8 @@ raster_fwd_seg_kernel(const float* __restrict__ F,
 }
 
 using FwdKernel = void (*)(const float*, const int*, const int*, int, int,
-                           const float*, const float*, float*, float*, int,
-                           int, float, float);
+                           const float*, const float*, float*, float*, int*,
+                           int, int, float, float);
 
 template <int PPL, bool FLAT>
 FwdKernel pick_flags(int with_median, int with_dist) {
@@ -354,13 +363,13 @@ int prepare(int P, int with_median, int with_dist, FwdKernel* fn,
 }
 
 // Launch over n_tiles tiles of P pixels (P a multiple of 32 up to 256, C
-// a multiple of 32 dividing the tile's slot space); returns the CUDA
-// error code.
+// a multiple of 32 dividing the tile's slot space); med_slot [n_tiles, P]
+// is written with the median only; returns the CUDA error code.
 template <bool FLAT>
 int launch_fwd(const float* F, SlotLayout L, const float* rays,
-               const float* pix, float* out, float* tbound, int n_tiles,
-               int C, int P, float width, float inv_width, int with_median,
-               int with_dist, cudaStream_t stream) {
+               const float* pix, float* out, float* tbound, int* med_slot,
+               int n_tiles, int C, int P, float width, float inv_width,
+               int with_median, int with_dist, cudaStream_t stream) {
   FwdKernel fn;
   Shape s;
   const int err = prepare<FLAT>(P, with_median, with_dist, &fn, &s);
@@ -368,7 +377,7 @@ int launch_fwd(const float* F, SlotLayout L, const float* rays,
   if (n_tiles == 0) return 0;
   fn<<<n_tiles, s.groups * NWARP * 32, s.smem, stream>>>(
       F, L.ids, L.meta, L.slots_per_view, L.tiles_per_view, rays, pix, out,
-      tbound, C, P, width, inv_width);
+      tbound, med_slot, C, P, width, inv_width);
   return (int)cudaGetLastError();
 }
 

@@ -1,3 +1,4 @@
-"""Evaluation: odometry RPE (eval/recon.py and eval/tsdf.py are not ported
-yet, ROADMAP.md queue 1 item 4)."""
+"""Evaluation: odometry RPE (odometry.py), reconstruction metrics
+(recon.py) and TSDF fusion with marching tetrahedra and the grid Poisson
+solver (tsdf.py)."""
 from .odometry import evaluate_rpe  # noqa: F401

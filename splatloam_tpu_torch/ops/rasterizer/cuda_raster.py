@@ -28,7 +28,13 @@ bucketed and flat slot layouts, one view or B views over one surfel set:
     stack into one pool F [B*(N+1), 16], their slot ids carry each view's
     row offset, and per-view reduction plans reduce view by view;
   * gradients reach the surfel params and the poses through torch autograd
-    of ``pack_surfels``, summed over the views.
+    of ``pack_surfels``, summed over the views;
+  * every channel is differentiated.  Over the composited slots alpha +
+    final T = 1 exactly, so the final-T cotangent is folded into alpha's
+    before the backward (``_fold_final_T``) and no kernel reads it; with
+    the median (``with_median``) the forward also returns each pixel's
+    median slot, and the backward kernels' MED variant adds the median's
+    cotangent at exactly that slot.
 
 The kernels gather their features from F by the slot ids themselves, so
 the JAX package's separate feature gather (and its [T, 16, K] copy kept
@@ -297,11 +303,22 @@ def _pool_ids(ids, n_plus1: int):
 
 
 def _forward_tiled(F, lists, counts, rays_t, pix_t, static: _StaticArgs):
-    """F [R, 16], lists [T, K] -> (out [T, P, 8], tbound [T, P, K/C])."""
-    return kernels.raster_fwd(F, lists, counts, rays_t, pix_t,
-                              chunk=static.chunk, width=static.width,
-                              with_median=static.with_median,
-                              with_dist=static.with_dist)
+    """F [R, 16], lists [T, K] -> (out [T, P, 8], tbound [T, P, K/C],
+    med_slot [T, P] or None without the median)."""
+    out, tbound, *slot = kernels.raster_fwd(
+        F, lists, counts, rays_t, pix_t, chunk=static.chunk,
+        width=static.width, with_median=static.with_median,
+        with_dist=static.with_dist, return_slot=static.with_median)
+    return out, tbound, (slot[0] if slot else None)
+
+
+def _fold_final_T(g):
+    """Output cotangents [..., 8] with final T's folded into alpha's
+    (alpha + final T = 1 over the composited slots), so the backward reads
+    channels 0-6 only."""
+    g = g.clone(memory_format=torch.contiguous_format)
+    g[..., 1] -= g[..., 7]
+    return g
 
 
 def _reduce_rows_with_ranksum(rows_all, plan: RanksumPlan, n_plus1: int):
@@ -333,7 +350,7 @@ def _scatter_with_plan(rows_all, plan: ScatterPlan, n_plus1: int):
 
 
 def _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, outs, g,
-                    static: _StaticArgs, plans):
+                    static: _StaticArgs, plans, med_slot=None):
     """-> dF [B*(N+1), 16] over the pool of ``static.n_views`` views: K5
     under ``fused``; else K2's per-slot rows, reduced view by view by its
     plan (``plans``, one per view: K3 (+ K6) or gather-sum + K6), or over
@@ -341,7 +358,7 @@ def _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, outs, g,
     divisor of the tile count, as the JAX package does)."""
     n_rows = F.shape[0]
     kw = dict(chunk=static.chunk, width=static.width,
-              with_dist=static.with_dist)
+              with_dist=static.with_dist, med_slot=med_slot)
     if static.fused:
         return kernels.raster_bwd_fused(F, lists, counts, rays_t, pix_t,
                                         tbound, outs, g, n_rows, **kw)
@@ -367,18 +384,21 @@ class _RasterCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, F, lists, counts, rays_t, pix_t, static, plans):
-        out, tbound = _forward_tiled(F, lists, counts, rays_t, pix_t,
-                                     static)
-        ctx.save_for_backward(F, lists, counts, rays_t, pix_t, tbound, out)
+        out, tbound, med_slot = _forward_tiled(F, lists, counts, rays_t,
+                                               pix_t, static)
+        ctx.save_for_backward(F, lists, counts, rays_t, pix_t, tbound, out,
+                              med_slot)
         ctx.static = static
         ctx.plans = plans
         return out
 
     @staticmethod
     def backward(ctx, g):
-        F, lists, counts, rays_t, pix_t, tbound, out = ctx.saved_tensors
+        (F, lists, counts, rays_t, pix_t, tbound, out,
+         med_slot) = ctx.saved_tensors
         dF = _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, out,
-                             g.contiguous(), ctx.static, ctx.plans)
+                             _fold_final_T(g), ctx.static, ctx.plans,
+                             med_slot)
         return dF, None, None, None, None, None, None
 
 
@@ -390,22 +410,24 @@ class _RasterCoreFlat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, F, ids, starts, rays_t, pix_t, static):
-        out, tbound = kernels.raster_fwd_flat(
+        out, tbound, *slot = kernels.raster_fwd_flat(
             F, ids, starts, rays_t, pix_t, chunk=static.chunk,
             width=static.width, with_median=static.with_median,
-            with_dist=static.with_dist)
-        ctx.save_for_backward(F, ids, starts, rays_t, pix_t, tbound, out)
+            with_dist=static.with_dist, return_slot=static.with_median)
+        ctx.save_for_backward(F, ids, starts, rays_t, pix_t, tbound, out,
+                              slot[0] if slot else None)
         ctx.static = static
         return out
 
     @staticmethod
     def backward(ctx, g):
-        F, ids, starts, rays_t, pix_t, tbound, out = ctx.saved_tensors
+        (F, ids, starts, rays_t, pix_t, tbound, out,
+         med_slot) = ctx.saved_tensors
         static = ctx.static
         rows = kernels.raster_bwd_flat(
-            F, ids, starts, rays_t, pix_t, tbound, out, g.contiguous(),
+            F, ids, starts, rays_t, pix_t, tbound, out, _fold_final_T(g),
             chunk=static.chunk, width=static.width,
-            with_dist=static.with_dist)
+            with_dist=static.with_dist, med_slot=med_slot)
         dF = kernels.scatter_rows_flat(rows, ids, starts, F.shape[0])
         return dF, None, None, None, None, None
 
@@ -417,38 +439,42 @@ class _RasterCoreBucketed(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, F, bt: BucketedTiles, static):
-        out_b, tb_b = _forward_tiled(F, bt.lists_b, bt.counts_b, bt.rays_b,
-                                     bt.pix_b, static)
-        out_s, tb_s = _forward_tiled(F, bt.lists_s, bt.counts_s, bt.rays_s,
-                                     bt.pix_s, static)
+        out_b, tb_b, ms_b = _forward_tiled(F, bt.lists_b, bt.counts_b,
+                                           bt.rays_b, bt.pix_b, static)
+        out_s, tb_s, ms_s = _forward_tiled(F, bt.lists_s, bt.counts_s,
+                                           bt.rays_s, bt.pix_s, static)
         n_tiles = bt.lists_b.shape[0] + bt.lists_s.shape[0]
         out = out_b.new_zeros((n_tiles, *out_b.shape[1:]))
         out[bt.idx_b.long()] = out_b
         out[bt.idx_s.long()] = out_s
-        ctx.save_for_backward(F, tb_b, out_b, tb_s, out_s)
+        ctx.save_for_backward(F, tb_b, out_b, tb_s, out_s, ms_b, ms_s)
         ctx.bt = bt
         ctx.static = static
         return out
 
     @staticmethod
     def backward(ctx, g):
-        F, tb_b, out_b, tb_s, out_s = ctx.saved_tensors
+        F, tb_b, out_b, tb_s, out_s, ms_b, ms_s = ctx.saved_tensors
         bt, static = ctx.bt, ctx.static
         n_plus1 = F.shape[0]
         kw = dict(chunk=static.chunk, width=static.width,
                   with_dist=static.with_dist)
+        g = _fold_final_T(g)
+        # each bucket's median slots index its own lists
         buckets = [
-            (bt.lists_b, bt.counts_b, bt.rays_b, bt.pix_b, tb_b, out_b,
-             g[bt.idx_b.long()].contiguous()),
-            (bt.lists_s, bt.counts_s, bt.rays_s, bt.pix_s, tb_s, out_s,
-             g[bt.idx_s.long()].contiguous())]
+            ((bt.lists_b, bt.counts_b, bt.rays_b, bt.pix_b, tb_b, out_b,
+              g[bt.idx_b.long()].contiguous()), ms_b),
+            ((bt.lists_s, bt.counts_s, bt.rays_s, bt.pix_s, tb_s, out_s,
+              g[bt.idx_s.long()].contiguous()), ms_s)]
         if bt.plan is not None:
-            rows = torch.cat([kernels.raster_bwd(F, *b, **kw).reshape(-1, 16)
-                              for b in buckets])
+            rows = torch.cat([
+                kernels.raster_bwd(F, *b, med_slot=ms, **kw).reshape(-1, 16)
+                for b, ms in buckets])
             dF = _reduce_rows_with_ranksum(rows, bt.plan, n_plus1)
         else:
-            dF_b, dF_s = (kernels.raster_bwd_fused(F, *b, n_plus1, **kw)
-                          for b in buckets)
+            dF_b, dF_s = (kernels.raster_bwd_fused(F, *b, n_plus1,
+                                                   med_slot=ms, **kw)
+                          for b, ms in buckets)
             dF = dF_b + dF_s
         return dF, None, None
 

@@ -25,8 +25,14 @@ Shapes (one view): F [N+1, 16] packed features (row N is the zero pad
 row), lists [T, K] int32 slot ids, counts [T] int32, rays [T, P, 3],
 pix [T, P, 2], out [T, P, 8] = (depth_sum, alpha, normal_sum[3], median,
 dist, final_T), tbound [T, P, K/chunk] chunk-start transmittance (0 for
-chunks the forward skipped), g [T, P, 8] output cotangents, dFg [T, K, 16]
-per-slot feature gradients, dF [N+1, 16] per-surfel feature gradients.
+chunks the forward skipped), med_slot [T, P] int32 the slot (its index in
+the tile's own slots) whose depth is the pixel's median, -1 for none,
+written by the forward with the median, g [T, P, 8] output cotangents,
+dFg [T, K, 16] per-slot feature gradients, dF [N+1, 16] per-surfel
+feature gradients.  The backward differentiates the median channel only
+when it is given the forward's med_slot (the kernels' MED variant); it
+never reads the final-T channel's cotangent (cuda_raster folds it into
+alpha's: alpha + final T = 1 over the composited slots).
 Several views share one launch through a pool F [B*(N+1), 16] whose
 slot ids carry each view's row offset.
 
@@ -88,11 +94,11 @@ _TPU = "splatloam_tpu/ops/rasterizer/pallas_raster.py"
 KERNELS = {
     "K1_fwd": Kernel(
         "K1_fwd", "raster_fwd.cu", "launch_raster_fwd",
-        (_P,) * 7 + (_I,) * 4 + (_F, _F) + (_I, _I, _P),
+        (_P,) * 8 + (_I,) * 4 + (_F, _F) + (_I, _I, _P),
         f"{_TPU}:159"),
     "K2_bwd": Kernel(
         "K2_bwd", "raster_bwd.cu", "launch_raster_bwd",
-        (_P,) * 9 + (_I,) * 4 + (_F, _F) + (_I, _P),
+        (_P,) * 10 + (_I,) * 4 + (_F, _F) + (_I, _I, _P),
         f"{_TPU}:267"),
     "K3_ranksum": Kernel(
         "K3_ranksum", "ranksum.cu", "launch_ranksum_rows",
@@ -102,18 +108,18 @@ KERNELS = {
         (_P,) * 4 + (_I, _I, _P), f"{_TPU}:478"),
     "K5_bwd_fused": Kernel(
         "K5_bwd_fused", "raster_bwd_fused.cu", "launch_raster_bwd_fused",
-        (_P,) * 9 + (_I,) * 4 + (_F, _F) + (_I, _P),
+        (_P,) * 10 + (_I,) * 4 + (_F, _F) + (_I, _I, _P),
         f"{_TPU}:267"),
     "K6_scatter_overflow": Kernel(
         "K6_scatter_overflow", "scatter_overflow.cu",
         "launch_scatter_overflow", (_P,) * 5 + (_I, _P), f"{_TPU}:605"),
     "K7_fwd_flat": Kernel(
         "K7_fwd_flat", "raster_fwd_flat.cu", "launch_raster_fwd_flat",
-        (_P,) * 7 + (_I,) * 5 + (_F, _F) + (_I, _I, _P),
+        (_P,) * 8 + (_I,) * 5 + (_F, _F) + (_I, _I, _P),
         f"{_TPU}:1087"),
     "K8_bwd_flat": Kernel(
         "K8_bwd_flat", "raster_bwd_flat.cu", "launch_raster_bwd_flat",
-        (_P,) * 9 + (_I,) * 5 + (_F, _F) + (_I, _P),
+        (_P,) * 10 + (_I,) * 5 + (_F, _F) + (_I, _I, _P),
         f"{_TPU}:1153"),
     "K9_scatter_rows_flat": Kernel(
         "K9_scatter_rows_flat", "scatter_rows_flat.cu",
@@ -199,7 +205,7 @@ def resident_warps(name: str, p_tile: int, chunk: int, with_dist: bool,
     k.fn()
     fn = getattr(ctypes.CDLL(str(_library_path(k.source))),
                  f"{k.symbol}_resident_warps")
-    args = (p_tile, chunk, int(with_dist))
+    args = (p_tile, chunk, int(with_dist), int(with_median))
     if name in ("K1_fwd", "K7_fwd_flat"):
         args = (p_tile, chunk, int(with_median), int(with_dist))
     fn.argtypes = [_I] * len(args)
@@ -333,10 +339,12 @@ def _n_active_chunks(counts, chunk):
 # ---------------------------------------------------------------------------
 
 def raster_fwd_plain(F, lists, counts, rays, pix, *, chunk: int,
-                     width: int, with_median: bool, with_dist: bool):
+                     width: int, with_median: bool, with_dist: bool,
+                     return_slot: bool = False):
     """Plain version of K1: a tile-batched loop over chunks, each chunk
     composited in closed form (exclusive cumsum of log1p(-alpha)); a tile
-    stops at its count or once every pixel's T <= T_EPS."""
+    stops at its count or once every pixel's T <= T_EPS.  ``return_slot``
+    (with the median) also returns med_slot."""
     n_tiles, k_cap = lists.shape
     p_tile = rays.shape[1]
     n_chunks = k_cap // chunk
@@ -344,6 +352,8 @@ def raster_fwd_plain(F, lists, counts, rays, pix, *, chunk: int,
     zeros = rays.new_zeros((n_tiles, p_tile))
     T_carry = torch.ones_like(zeros)
     d_sum, a_sum, med, dist = (zeros.clone() for _ in range(4))
+    med_slot = torch.full((n_tiles, p_tile), -1, dtype=torch.int32,
+                          device=rays.device)
     n_sum = rays.new_zeros((n_tiles, p_tile, 3))
     tbound = rays.new_zeros((n_tiles, p_tile, n_chunks))
     for i in range(n_chunks):
@@ -369,7 +379,10 @@ def raster_fwd_plain(F, lists, counts, rays, pix, *, chunk: int,
             first = crossing & (torch.cumsum(crossing.int(), dim=-1) == 1)
             d_first = torch.sum(torch.where(first, m, 0.0), dim=-1)
             any_c = first.any(dim=-1)
-            med = torch.where(a1 & (med == 0.0) & any_c, d_first, med)
+            take = a1 & (med == 0.0) & any_c
+            med = torch.where(take, d_first, med)
+            med_slot = torch.where(
+                take, (i * chunk + first.int().argmax(-1)).int(), med_slot)
         d_sum = torch.where(a1, d_sum + wm.sum(-1), d_sum)
         a_sum = torch.where(a1, a_sum + w.sum(-1), a_sum)
         n_sum = torch.where(a1[..., None], n_sum + torch.einsum(
@@ -379,28 +392,45 @@ def raster_fwd_plain(F, lists, counts, rays, pix, *, chunk: int,
     out = torch.cat([d_sum[..., None], a_sum[..., None], n_sum,
                      med[..., None], dist[..., None], T_carry[..., None]],
                     dim=-1)
+    if return_slot:
+        return out, tbound, med_slot
     return out, tbound
 
 
+def _med_slot_out(n_tiles: int, p_tile: int, with_median: bool, dev):
+    """The forward's med_slot output ([T, P] int32) under the median, and
+    its pointer; without the median (None, 0): the kernel writes none."""
+    if not with_median:
+        return None, 0
+    med_slot = torch.empty((n_tiles, p_tile), dtype=torch.int32, device=dev)
+    return med_slot, med_slot.data_ptr()
+
+
 def raster_fwd(F, lists, counts, rays, pix, *, chunk: int, width: int,
-               with_median: bool, with_dist: bool):
-    """K1: (out [T, P, 8], tbound [T, P, K/chunk])."""
+               with_median: bool, with_dist: bool, return_slot: bool = False):
+    """K1: (out [T, P, 8], tbound [T, P, K/chunk]), and med_slot [T, P]
+    when ``return_slot`` (with the median only)."""
     _check_ids("K1 lists", lists, F.shape[0])
+    if return_slot and not with_median:
+        raise ValueError("med_slot is written with the median only")
     if not _on_cuda(F):
         return raster_fwd_plain(F, lists, counts, rays, pix, chunk=chunk,
                                 width=width, with_median=with_median,
-                                with_dist=with_dist)
+                                with_dist=with_dist, return_slot=return_slot)
     n_tiles, k_cap, p_tile = _check_tiles(F, lists, counts, rays, pix,
                                           chunk)
     out = torch.empty((n_tiles, p_tile, 8), dtype=torch.float32,
                       device=F.device)
     tbound = torch.empty((n_tiles, p_tile, k_cap // chunk),
                          dtype=torch.float32, device=F.device)
+    med_slot, ms = _med_slot_out(n_tiles, p_tile, with_median, F.device)
     _launch("K1_fwd", F.data_ptr(), lists.data_ptr(), counts.data_ptr(),
             rays.data_ptr(), pix.data_ptr(), out.data_ptr(),
-            tbound.data_ptr(), n_tiles, k_cap, chunk, p_tile,
+            tbound.data_ptr(), ms, n_tiles, k_cap, chunk, p_tile,
             float(width), 1.0 / width, int(with_median), int(with_dist),
             _stream(F))
+    if return_slot:
+        return out, tbound, med_slot
     return out, tbound
 
 
@@ -458,14 +488,18 @@ def _live_chunks(counts, tbound, chunk):
 
 
 def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
-                     chunk: int, width: int, with_dist: bool):
+                     chunk: int, width: int, with_dist: bool,
+                     med_slot=None):
     """Plain version of K2: reverse loop over each tile's live chunks
     (those the forward ran: chunk-start T > T_EPS for some pixel), with
-    O(P) suffix carries; closed-form in-chunk prefix/suffix sums."""
+    O(P) suffix carries; closed-form in-chunk prefix/suffix sums.  With
+    ``med_slot`` the median's cotangent joins the depth cotangent of the
+    pair at each pixel's median slot."""
     n_tiles, k_cap = lists.shape
     n_chunks = k_cap // chunk
     n_live = _live_chunks(counts, tbound, chunk)               # [T]
     gD, gA, gN, gdist = g[..., 0:1], g[..., 1:2], g[..., 2:5], g[..., 6:7]
+    col = torch.arange(chunk, device=F.device)
     A_total, D_total = outs[..., 1:2], outs[..., 0:1]
     S_phi_c = torch.zeros_like(gD)
     W_c = torch.zeros_like(gD)
@@ -495,6 +529,9 @@ def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
         gm = w * gD
         if with_dist:
             gm = gm + w * gdist * (A_prev - W_suf)
+        if med_slot is not None:
+            at = (i * chunk + col) == med_slot[..., None]      # [T, P, C]
+            gm = gm + torch.where(at, g[..., 5:6], 0.0)
         dF = _bwd_rows(geo, rays, gN, Ti, w, phi, S_phi, gm)
         dFg[:, i * chunk:(i + 1) * chunk] = torch.where(
             a1, dF.transpose(1, 2), 0.0)
@@ -505,8 +542,18 @@ def raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g, *,
     return dFg
 
 
+def _med_slot_arg(med_slot, n_tiles: int, p_tile: int, dev) -> int:
+    """The backward's med_slot pointer: checked when given (MED), else
+    0, which the kernel without the median never reads."""
+    if med_slot is None:
+        return 0
+    _check("med_slot", med_slot, torch.int32, (n_tiles, p_tile), dev,
+           align=4)
+    return med_slot.data_ptr()
+
+
 def _launch_bwd(name, dst, F, lists, counts, rays, pix, tbound, outs, g,
-                chunk: int, width: int, with_dist: bool):
+                chunk: int, width: int, with_dist: bool, med_slot=None):
     """Check K2's / K5's inputs and launch ``name`` writing into ``dst``."""
     n_tiles, k_cap, p_tile = _check_tiles(F, lists, counts, rays, pix,
                                           chunk)
@@ -515,29 +562,30 @@ def _launch_bwd(name, dst, F, lists, counts, rays, pix, tbound, outs, g,
            (n_tiles, p_tile, k_cap // chunk), dev)
     _check("outs", outs, torch.float32, (n_tiles, p_tile, 8), dev)
     _check("g", g, torch.float32, (n_tiles, p_tile, 8), dev)
+    ms = _med_slot_arg(med_slot, n_tiles, p_tile, dev)
     _launch(name, F.data_ptr(), lists.data_ptr(), counts.data_ptr(),
             rays.data_ptr(), pix.data_ptr(), tbound.data_ptr(),
-            outs.data_ptr(), g.data_ptr(), dst.data_ptr(), n_tiles, k_cap,
-            chunk, p_tile, float(width), 1.0 / width, int(with_dist),
-            _stream(F))
+            outs.data_ptr(), g.data_ptr(), ms, dst.data_ptr(), n_tiles,
+            k_cap, chunk, p_tile, float(width), 1.0 / width, int(with_dist),
+            int(med_slot is not None), _stream(F))
     return dst
 
 
 def raster_bwd(F, lists, counts, rays, pix, tbound, outs, g, *,
-               chunk: int, width: int, with_dist: bool):
-    """K2: dFg [T, K, 16] per-slot feature gradients (the median channel
-    is not differentiated).  Rows past each tile's count are zeros in the
-    plain version and left unwritten by the kernel: no reduction reads
-    them."""
+               chunk: int, width: int, with_dist: bool, med_slot=None):
+    """K2: dFg [T, K, 16] per-slot feature gradients; the median channel
+    is differentiated when K1's ``med_slot`` is given.  Rows past each
+    tile's count are zeros in the plain version and left unwritten by the
+    kernel: no reduction reads them."""
     _check_ids("K2 lists", lists, F.shape[0])
     if not _on_cuda(F):
         return raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs,
                                 g, chunk=chunk, width=width,
-                                with_dist=with_dist)
+                                with_dist=with_dist, med_slot=med_slot)
     dFg = torch.empty((*lists.shape, 16), dtype=torch.float32,
                       device=F.device)
     return _launch_bwd("K2_bwd", dFg, F, lists, counts, rays, pix, tbound,
-                       outs, g, chunk, width, with_dist)
+                       outs, g, chunk, width, with_dist, med_slot)
 
 
 # ---------------------------------------------------------------------------
@@ -600,27 +648,30 @@ def scatter_rows(dFg, lists, counts, n_rows: int):
 
 def raster_bwd_fused_plain(F, lists, counts, rays, pix, tbound, outs, g,
                            n_rows: int, *, chunk: int, width: int,
-                           with_dist: bool):
+                           with_dist: bool, med_slot=None):
     """Plain version of K5: K2's plain rows reduced by K4's plain
     version."""
     dFg = raster_bwd_plain(F, lists, counts, rays, pix, tbound, outs, g,
-                           chunk=chunk, width=width, with_dist=with_dist)
+                           chunk=chunk, width=width, with_dist=with_dist,
+                           med_slot=med_slot)
     return scatter_rows_plain(dFg, lists, counts, n_rows)
 
 
 def raster_bwd_fused(F, lists, counts, rays, pix, tbound, outs, g,
                      n_rows: int, *, chunk: int, width: int,
-                     with_dist: bool):
+                     with_dist: bool, med_slot=None):
     """K5: dF [n_rows, 16] per-surfel feature gradients, K2's rows added
-    into the pool by surfel id inside the kernel (dFg is never stored)."""
+    into the pool by surfel id inside the kernel (dFg is never stored);
+    the median channel as K2's."""
     _check_ids("K5 lists", lists, min(F.shape[0], n_rows))
     if not _on_cuda(F):
         return raster_bwd_fused_plain(F, lists, counts, rays, pix, tbound,
                                       outs, g, n_rows, chunk=chunk,
-                                      width=width, with_dist=with_dist)
+                                      width=width, with_dist=with_dist,
+                                      med_slot=med_slot)
     dF = torch.zeros((n_rows, 16), dtype=torch.float32, device=F.device)
     return _launch_bwd("K5_bwd_fused", dF, F, lists, counts, rays, pix,
-                       tbound, outs, g, chunk, width, with_dist)
+                       tbound, outs, g, chunk, width, with_dist, med_slot)
 
 
 # ---------------------------------------------------------------------------
@@ -715,17 +766,19 @@ def _flat_as_tiles(ids, starts, chunk: int):
 
 
 def raster_fwd_flat_plain(F, ids, starts, rays, pix, *, chunk: int,
-                          width: int, with_median: bool, with_dist: bool):
+                          width: int, with_median: bool, with_dist: bool,
+                          return_slot: bool = False):
     """Plain version of K7: K1's plain version over each tile's chunk
     range, with tbound moved to the flat chunks (0 for chunks no tile
-    owns)."""
+    owns); med_slot is the offset from the tile's first flat slot."""
     lists, counts, chunk_of, owned = _flat_as_tiles(ids, starts, chunk)
-    out, tb = raster_fwd_plain(F, lists, counts, rays, pix, chunk=chunk,
-                               width=width, with_median=with_median,
-                               with_dist=with_dist)
+    out, tb, *slot = raster_fwd_plain(
+        F, lists, counts, rays, pix, chunk=chunk, width=width,
+        with_median=with_median, with_dist=with_dist,
+        return_slot=return_slot)
     tbound = rays.new_zeros((ids.shape[0] // chunk, rays.shape[1]))
     tbound[chunk_of[owned]] = tb.transpose(1, 2)[owned]
-    return out, tbound
+    return (out, tbound, *slot)
 
 
 def _check_flat(F, ids, starts, rays, pix, chunk):
@@ -749,14 +802,20 @@ def _check_flat(F, ids, starts, rays, pix, chunk):
 
 
 def raster_fwd_flat(F, ids, starts, rays, pix, *, chunk: int, width: int,
-                    with_median: bool, with_dist: bool):
-    """K7: (out [B*T, P, 8], tbound [B*E/chunk, P]); a tile that owns no
-    chunk comes out as the empty state (zeros, final T = 1)."""
+                    with_median: bool, with_dist: bool,
+                    return_slot: bool = False):
+    """K7: (out [B*T, P, 8], tbound [B*E/chunk, P]), and med_slot [B*T,
+    P] (offsets from each tile's first flat slot) when ``return_slot``
+    (with the median only); a tile that owns no chunk comes out as the
+    empty state (zeros, final T = 1)."""
     _check_ids("K7 ids", ids, F.shape[0])
+    if return_slot and not with_median:
+        raise ValueError("med_slot is written with the median only")
     if not _on_cuda(F):
         return raster_fwd_flat_plain(F, ids, starts, rays, pix, chunk=chunk,
                                      width=width, with_median=with_median,
-                                     with_dist=with_dist)
+                                     with_dist=with_dist,
+                                     return_slot=return_slot)
     n_tiles, p_tile, e_view, t_view = _check_flat(F, ids, starts, rays, pix,
                                                   chunk)
     out = torch.empty((n_tiles, p_tile, 8), dtype=torch.float32,
@@ -764,16 +823,20 @@ def raster_fwd_flat(F, ids, starts, rays, pix, *, chunk: int, width: int,
     # the kernel zeroes the chunks no tile reached, owned or not
     tbound = torch.empty((ids.shape[0] // chunk, p_tile),
                          dtype=torch.float32, device=F.device)
+    med_slot, ms = _med_slot_out(n_tiles, p_tile, with_median, F.device)
     _launch("K7_fwd_flat", F.data_ptr(), ids.data_ptr(), starts.data_ptr(),
             rays.data_ptr(), pix.data_ptr(), out.data_ptr(),
-            tbound.data_ptr(), n_tiles, e_view, t_view, chunk, p_tile,
-            float(width), 1.0 / width, int(with_median), int(with_dist),
-            _stream(F))
+            tbound.data_ptr(), ms, n_tiles, e_view, t_view,
+            chunk, p_tile, float(width), 1.0 / width, int(with_median),
+            int(with_dist), _stream(F))
+    if return_slot:
+        return out, tbound, med_slot
     return out, tbound
 
 
 def raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound, outs, g, *,
-                          chunk: int, width: int, with_dist: bool):
+                          chunk: int, width: int, with_dist: bool,
+                          med_slot=None):
     """Plain version of K8: K2's plain version over each tile's chunk
     range, its rows moved to the flat slots (0 for chunks no tile owns)."""
     lists, counts, chunk_of, owned = _flat_as_tiles(ids, starts, chunk)
@@ -782,14 +845,14 @@ def raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound, outs, g, *,
     tb[owned] = tbound[chunk_of[owned]]
     dFg = raster_bwd_plain(F, lists, counts, rays, pix, tb.transpose(1, 2),
                            outs, g, chunk=chunk, width=width,
-                           with_dist=with_dist)
+                           with_dist=with_dist, med_slot=med_slot)
     rows = F.new_zeros((ids.shape[0] // chunk, chunk, 16))
     rows[chunk_of[owned]] = dFg.reshape(n_tiles, m, chunk, 16)[owned]
     return rows.reshape(-1, 16)
 
 
 def _launch_bwd_flat(rows, F, ids, starts, rays, pix, tbound, outs, g,
-                     chunk: int, width: int, with_dist: bool):
+                     chunk: int, width: int, with_dist: bool, med_slot=None):
     """Check K8's inputs and launch it writing into ``rows``."""
     n_tiles, p_tile, e_view, t_view = _check_flat(F, ids, starts, rays, pix,
                                                   chunk)
@@ -799,29 +862,31 @@ def _launch_bwd_flat(rows, F, ids, starts, rays, pix, tbound, outs, g,
     _check("outs", outs, torch.float32, (n_tiles, p_tile, 8), dev)
     _check("g", g, torch.float32, (n_tiles, p_tile, 8), dev)
     _check("rows", rows, torch.float32, (ids.shape[0], 16), dev)
+    ms = _med_slot_arg(med_slot, n_tiles, p_tile, dev)
     _launch("K8_bwd_flat", F.data_ptr(), ids.data_ptr(), starts.data_ptr(),
             rays.data_ptr(), pix.data_ptr(), tbound.data_ptr(),
-            outs.data_ptr(), g.data_ptr(), rows.data_ptr(), n_tiles, e_view,
-            t_view, chunk, p_tile, float(width), 1.0 / width, int(with_dist),
-            _stream(F))
+            outs.data_ptr(), g.data_ptr(), ms, rows.data_ptr(), n_tiles,
+            e_view, t_view, chunk, p_tile, float(width), 1.0 / width,
+            int(with_dist), int(med_slot is not None), _stream(F))
     return rows
 
 
 def raster_bwd_flat(F, ids, starts, rays, pix, tbound, outs, g, *,
-                    chunk: int, width: int, with_dist: bool):
-    """K8: rows [B*E, 16] per flat slot (the median channel is not
-    differentiated); rows of chunks the forward skipped and of pads are 0.
+                    chunk: int, width: int, with_dist: bool, med_slot=None):
+    """K8: rows [B*E, 16] per flat slot (the median channel differentiated
+    when K7's ``med_slot`` is given); rows of chunks the forward skipped
+    and of pads are 0.
     The rows of chunks no tile owns are 0 in the plain version and left
     unwritten by the kernel: K9 does not read them."""
     _check_ids("K8 ids", ids, F.shape[0])
     if not _on_cuda(F):
         return raster_bwd_flat_plain(F, ids, starts, rays, pix, tbound,
                                      outs, g, chunk=chunk, width=width,
-                                     with_dist=with_dist)
+                                     with_dist=with_dist, med_slot=med_slot)
     rows = torch.empty((ids.shape[0], 16), dtype=torch.float32,
                        device=F.device)
     return _launch_bwd_flat(rows, F, ids, starts, rays, pix, tbound, outs, g,
-                            chunk, width, with_dist)
+                            chunk, width, with_dist, med_slot)
 
 
 # ---------------------------------------------------------------------------

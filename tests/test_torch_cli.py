@@ -271,12 +271,6 @@ def test_module_entry_point_needs_a_device(kitti_runs):
     assert "no CUDA device" in r.stderr
 
 
-@pytest.mark.parametrize("command", ["mesh", "eval_recon", "crop_recon"])
-def test_unported_commands_raise(command):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        cli.main([command, "a", "b"])
-
-
 def test_supervised_recovery(tmp_path, monkeypatch, capfd):
     """`slam --supervise`: the child dies at frame 2, after the keyframe
     of frame 1 (0.4 m from frame 0) was checkpointed with frame 0
