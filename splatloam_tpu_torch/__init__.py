@@ -8,20 +8,23 @@ the kernel's plain PyTorch version instead.
 
 Layer map, from the entry point down:
   cli.py, __main__.py
-              ``python -m splatloam_tpu_torch slam|eval_odom|
-              generate_dummy_cfg`` (mesh, eval_recon and crop_recon are
-              not ported yet and raise)
+              ``python -m splatloam_tpu_torch slam|mesh|eval_odom|
+              eval_recon|crop_recon|generate_dummy_cfg`` (``slam`` under
+              torchrun for several ranks)
   io/         dataset readers (KITTI, VBR, NCD, Oxford Spires, generic)
               on point-cloud readers (BIN, PLY, PCD, ROS1/ROS2/MCAP
               bags) and the native host library (native.py); surfel PLY,
               trajectory files
   slam/       SLAM orchestrator, tracker (Gauss-Newton against the
               rendered map), mapper (densify -> optimize -> prune)
+  parallel/   the mapper over a ("data", "model") mesh of
+              torch.distributed ranks: rows / tiles / ring partitions,
+              autograd collectives, send-byte accounting
   model/      surfel pool + masked Adam, cameras, frames, submaps
   ops/        rasterizer (tiled kernel path + eager golden renderer),
               KNN, projection
   geometry/   SE(3)/quaternion + spherical camera math
-  eval/       odometry RPE
+  eval/       odometry RPE, reconstruction metrics, TSDF fusion
   preprocessing, postprocessing (result graph), checkpoint, debug
   (NaN/Inf and id checks), profiling, logging_backends (dummy,
   tensorboard, rerun)

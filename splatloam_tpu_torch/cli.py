@@ -127,11 +127,34 @@ def run_supervised(args, extra: list[str]) -> None:
             sys.exit(rc)
 
 
+def _join_ranks(device):
+    """Under torchrun (``WORLD_SIZE`` > 1): join the process group and
+    return (this rank's device, True), ``cuda:LOCAL_RANK`` (``cuda:0`` for ranks
+    that share one GPU).  On the GPU the first local rank builds the
+    kernels before the others pass the barrier, so no two ranks run nvcc
+    on the same sources."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return device, False
+    import torch
+    from .parallel.mesh import initialize_distributed, local_rank, rank_device
+    device = rank_device(device.type)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize_distributed(device=device)
+    if device.type == "cuda":
+        import torch.distributed as dist
+        if local_rank() == 0:
+            from .ops.rasterizer import kernels
+            kernels.build_all()
+        dist.barrier()
+    return device, True
+
+
 def cmd_slam(args, extra: list[str]) -> None:
     if args.supervise:
         return run_supervised(args, extra)
     from .device import resolve_device
-    device = resolve_device(args.device)
+    device, joined = _join_ranks(resolve_device(args.device))
     safe_state()
     set_log_level(args.verbose)
     if args.debug_checks:
@@ -160,11 +183,13 @@ def cmd_slam(args, extra: list[str]) -> None:
         from .checkpoint import load_checkpoint
         skip = load_checkpoint(cfg.output.checkpoint_dir, slam_module)
 
-    try:
-        from rich.progress import track
-        iterator = track(data_loader, description="Processing frames")
-    except Exception:
-        iterator = data_loader
+    iterator = data_loader
+    if slam_module.writes:
+        try:
+            from rich.progress import track
+            iterator = track(data_loader, description="Processing frames")
+        except Exception:
+            iterator = data_loader
     n = args.max_frames
     prof = get_profiler()
     fault_at = os.environ.get("SPLATLOAM_FAULT_AT_FRAME")
@@ -193,6 +218,11 @@ def cmd_slam(args, extra: list[str]) -> None:
 
     logger.info("phase profile:\n" + prof.report())
     results_dir = slam_module.save_results()
+    if joined:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    if results_dir is None:     # a rank other than 0 writes nothing
+        return
     print(f"Completed! Results in {results_dir}\n"
           f"  mesh:      python -m splatloam_tpu_torch mesh {results_dir}\n"
           f"  eval odom: python -m splatloam_tpu_torch eval_odom "

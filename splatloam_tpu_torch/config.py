@@ -269,8 +269,8 @@ class ComputeConfig:
     # Pick tile/chunk geometry from the live pool capacity instead of
     # the fields above (ops/rasterizer/api.adaptive_geometry).
     auto_tile: bool = True
-    # Multi-device option of the JAX package (float16 parameter
-    # all-gather); kept so the shared YAML files load, unused here.
+    # Sharded mapping: all-gather the non-position parameters in float16
+    # (row bytes 40 -> 26 on the "model" axis, parallel/sharded.py).
     compact_param_comms: bool = False
 
 
@@ -281,8 +281,12 @@ class ParallelConfig:
     data: int = 1
     # Number of ways the surfel pool is sharded (FSDP-style model axis).
     model: int = 1
-    # Data-axis work split of the JAX package ("rows", "tiles", "ring",
-    # "auto"); the port is single-device and rejects data*model > 1.
+    # Work split of the sharded mapper (parallel/sharded.py): "rows"
+    # (row blocks over "data"), "tiles" (count-balanced tiles over "data",
+    # cuda backend), "ring" (depth bands over "model" with ring
+    # compositing, cuda backend) or "auto" ("tiles" on cuda, "rows" on
+    # eager).  data*model > 1 needs that many torch.distributed ranks
+    # (torchrun).
     partition: str = "auto"
 
 

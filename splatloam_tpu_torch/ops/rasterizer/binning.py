@@ -374,6 +374,27 @@ def untile_px(chans_tiled: torch.Tensor, height: int, width: int,
     return a.reshape(*lead, n_ch, height, width)
 
 
+def tile_image(img: torch.Tensor, tile_h: int, tile_w: int) -> torch.Tensor:
+    """[H, W] or [H, W, C] image -> [T, P(, C)] in kernel tile order
+    (tiles row-major over (ty, tx), pixels row-major within a tile)."""
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[..., None]
+    height, width, c = img.shape
+    ty, tx = height // tile_h, width // tile_w
+    a = img.reshape(ty, tile_h, tx, tile_w, c).permute(0, 2, 1, 3, 4)
+    a = a.reshape(ty * tx, tile_h * tile_w, c)
+    return a[..., 0] if squeeze else a
+
+
+def untile_image(tiled: torch.Tensor, height: int, width: int, tile_h: int,
+                 tile_w: int) -> torch.Tensor:
+    """[T, P] per-tile scalar map -> [H, W] (inverse of tile_image)."""
+    ty, tx = height // tile_h, width // tile_w
+    a = tiled.reshape(ty, tx, tile_h, tile_w)
+    return a.permute(0, 2, 1, 3).reshape(height, width)
+
+
 def pack_features(packed: common.PackedSurfels) -> torch.Tensor:
     """PackedSurfels -> F [N+1, 16] (last row = zero padding target).
 

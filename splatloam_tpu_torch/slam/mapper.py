@@ -1,6 +1,6 @@
-"""Mapper: densify -> optimize -> prune on one device.
+"""Mapper: densify -> optimize -> prune.
 
-Counterpart of splatloam_tpu/slam/mapper.py, single device:
+Counterpart of splatloam_tpu/slam/mapper.py:
 
   * densify: candidate mask from the rendered alpha + optional depth-error
     quantile; weighted sampling without replacement by Gumbel-top-k;
@@ -12,6 +12,9 @@ Counterpart of splatloam_tpu/slam/mapper.py, single device:
     rendered in one batched pass and their losses averaged), with the
     paper's losses (Eq 15-17) and EMA early stopping.
   * prune: mask-clear by opacity/scale thresholds.
+
+With ``parallel.data * parallel.model`` > 1 the three steps run through
+the sharded programs of parallel/sharded.py, one process per rank.
 
 Randomness comes from a ``torch.Generator`` owned by ``Mapper``;
 ``densify_core`` and ``run_block_loop`` take the Gumbel noise and the
@@ -72,15 +75,21 @@ def sample_geometric_probs(n: int, last_kf_prob: float | None,
 
 def run_block_loop(surfels, adam, kf_indices, *, num_iters: int, rebin: int,
                    early: bool, patience_blocks: int, es_threshold: float,
-                   make_tiles, one_iter):
+                   make_tiles, one_iter, reshard=None, stall_from_root=None):
     """Optimize scaffold: a loop over rebin blocks with EMA early stopping.
 
     kf_indices [n_blocks] holds each block's keyframe index, or
     [n_blocks, views] its keyframe indices;
     make_tiles(surfels, kf_idx) -> frozen tile assignment (or None);
-    one_iter(surfels, adam, kf_idx, tiles) -> (surfels, adam, loss).
+    one_iter(surfels, adam, kf_idx, tiles) -> (surfels, adam, loss);
+    reshard(surfels, adam, kf_idx) -> (surfels, adam), an optional
+    shape-preserving re-layout at each block start (the ring partition's
+    per-view depth bands; slot order may change, every consumer goes
+    through the active mask).
     Returns (surfels, adam, loss EMA, iterations run).  With ``early`` the
-    host reads the stall count once per block.
+    host reads the stall count once per block, through
+    ``stall_from_root`` when given (the sharded programs pass rank 0's
+    count, so every rank stops after the same block).
     """
     n_blocks = (num_iters + rebin - 1) // rebin
     if kf_indices.shape[0] < n_blocks:
@@ -92,9 +101,14 @@ def run_block_loop(surfels, adam, kf_indices, *, num_iters: int, rebin: int,
     stalled = torch.zeros((), dtype=torch.int32, device=dev)
     b = 0
     while b < n_blocks:
-        if early and int(stalled) >= patience_blocks:
-            break
+        if early:
+            count = (stalled if stall_from_root is None
+                     else stall_from_root(stalled))
+            if int(count) >= patience_blocks:
+                break
         kf_idx = kf_indices[b]
+        if reshard is not None:
+            surfels, adam = reshard(surfels, adam, kf_idx)
         tiles = make_tiles(surfels, kf_idx)
         for _ in range(rebin):
             surfels, adam, loss = one_iter(surfels, adam, kf_idx, tiles)
@@ -183,6 +197,17 @@ def densify_core(surfels: S.Surfels, adam: S.AdamState, camera: Camera,
     return surfels, adam, n_written, sampled_mask.reshape(height, width)
 
 
+def scale_penalty(scaling, active, mc):
+    """Eq 17: scale-overflow penalty on active surfels."""
+    # amax splits the gradient between tied scales, as jnp.max does
+    smax = torch.amax(scaling, dim=-1)
+    # maximum (not clamp) halves the gradient at a tie, as jnp.maximum
+    # does: a scale initialized at exactly opt_scaling_max sits there
+    over = torch.maximum(smax - mc.opt_scaling_max,
+                         torch.zeros_like(smax)) * active
+    return mc.opt_scaling_max_penalty * torch.sum(over)
+
+
 def prune_core(surfels: S.Surfels, *, mc):
     """Prune mask by opacity/scale thresholds -> (surfels, n_pruned)."""
     prune = torch.zeros((surfels.capacity,), dtype=torch.bool,
@@ -265,15 +290,7 @@ class MapperPrograms:
         return geom_l1 + alpha_loss + normal_loss
 
     def _scale_penalty(self, scaling, active):
-        """Eq 17: scale-overflow penalty on active surfels."""
-        mc = self.cfg.mapping
-        # amax splits the gradient between tied scales, as jnp.max does
-        smax = torch.amax(scaling, dim=-1)
-        # maximum (not clamp) halves the gradient at a tie, as jnp.maximum
-        # does: a scale initialized at exactly opt_scaling_max sits there
-        over = torch.maximum(smax - mc.opt_scaling_max,
-                             torch.zeros_like(smax)) * active
-        return mc.opt_scaling_max_penalty * torch.sum(over)
+        return scale_penalty(scaling, active, self.cfg.mapping)
 
     def _loss(self, params: S.SurfelParams, active, kf: KeyframeBatch,
               kf_idx, tiles=None):
@@ -347,27 +364,45 @@ class MapperPrograms:
 
 
 class Mapper:
-    """Orchestration around MapperPrograms on one device.
+    """Orchestration around MapperPrograms.
 
     ``device``: None -> cuda (raises without a GPU).  ``seed`` seeds the
     generator of the Gumbel noise and the keyframe draws.
+
+    With ``parallel.data * parallel.model`` > 1 this process is one rank
+    of that many (torch.distributed, joined before, e.g. by torchrun and
+    ``parallel.initialize_distributed``): densify, optimize and prune run
+    through the sharded programs on a ("data", "model") mesh
+    (parallel/sharded.py), each rank holding its "model" slice of the
+    pool and of Adam during the update.  Between updates every rank holds
+    the whole pool, gathered at the end of the update (the tracker and
+    ``render_frame`` render it, as the JAX package replicates its sharded
+    pool for them).  The draws come from rank 0, so every rank densifies
+    and optimizes on the same ones.
     """
 
     def __init__(self, cfg: Configuration, device=None, seed: int = 0):
-        if cfg.parallel.data * cfg.parallel.model > 1:
-            raise NotImplementedError(
-                "multi-device mapping (parallel.data*model > 1) is not "
-                "ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model: LocalModel | None = None
         self._programs: dict[tuple, MapperPrograms] = {}
+        self._sharded: dict[tuple, dict] = {}
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.last_ema: torch.Tensor | None = None
         self.last_iters = 0
         # the last densify's sampled pixels [H, W] bool
         self._last_densify_mask: torch.Tensor | None = None
+        self.mesh = None
+        pc = cfg.parallel
+        if pc.data * pc.model > 1:
+            from ..parallel import make_mesh
+            self.mesh = make_mesh(pc.data, pc.model, device=self.device)
+
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes logger output (rank 0 only)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def register_model(self, model: LocalModel) -> None:
         if model.device != self.device:
@@ -382,18 +417,30 @@ class Mapper:
             self._programs[sig] = MapperPrograms(self.cfg, *sig)
         return self._programs[sig]
 
+    def _from_root(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` on every rank (unchanged without a mesh)."""
+        if self.mesh is None:
+            return t
+        from ..parallel import collectives
+        return collectives.broadcast_(t.contiguous(),
+                                      self.mesh.group("world"))
+
     def _gumbel(self, n: int) -> torch.Tensor:
         u = torch.rand((n,), generator=self.generator, device=self.device)
         tiny = torch.finfo(torch.float32).tiny
-        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+        return self._from_root(-torch.log(-torch.log(torch.clamp(u,
+                                                                min=tiny))))
 
     def _draw_keyframes(self, probs: np.ndarray, n_blocks: int):
         """Per-block keyframe indices: [n_blocks], or [n_blocks, views]
-        with views_per_iteration > 1 (drawn with replacement)."""
+        with views_per_iteration > 1 (drawn with replacement; the sharded
+        programs render one view per iteration, as the JAX package's)."""
         views = max(1, int(self.cfg.mapping.views_per_iteration or 1))
+        if self.mesh is not None:
+            views = 1
         p = torch.as_tensor(probs, dtype=torch.float32, device=self.device)
-        idx = torch.multinomial(p, n_blocks * views, replacement=True,
-                                generator=self.generator)
+        idx = self._from_root(torch.multinomial(
+            p, n_blocks * views, replacement=True, generator=self.generator))
         return idx if views == 1 else idx.reshape(n_blocks, views)
 
     def _stack_keyframes(self, kf_cap: int) -> KeyframeBatch:
@@ -410,8 +457,46 @@ class Mapper:
                              depth=stack["depth"], valid=stack["valid"],
                              probs=probs)
 
+    def partition(self, progs: MapperPrograms) -> str:
+        """``parallel.partition`` with "auto" resolved: "tiles" on the cuda
+        backend, "rows" on eager."""
+        part = self.cfg.parallel.partition
+        if part == "auto":
+            from ..ops.rasterizer.api import _resolve_backend
+            part = ("tiles" if _resolve_backend(progs.params.backend)
+                    == "cuda" else "rows")
+        return part
+
+    def _sharded_programs(self, progs: MapperPrograms) -> dict:
+        """The sharded densify/optimize/prune programs, once per program
+        signature."""
+        from ..parallel.sharded import (sharded_densify, sharded_optimize,
+                                        sharded_optimize_ring,
+                                        sharded_optimize_tiles,
+                                        sharded_prune)
+        builders = {"tiles": sharded_optimize_tiles,
+                    "ring": sharded_optimize_ring,
+                    "rows": sharded_optimize}
+        part = self.partition(progs)
+        if part not in builders:
+            raise ValueError(f"unknown parallel.partition {part!r}; "
+                             f"expected one of {sorted(builders)} or auto")
+        sig = (progs.height, progs.width, progs.capacity)
+        if sig not in self._sharded:
+            mc, depth_ratio = self.cfg.mapping, self.cfg.opt.depth_ratio
+            self._sharded[sig] = {
+                "densify": sharded_densify(self.mesh, progs.params, mc,
+                                           progs.max_new, depth_ratio),
+                "optimize": builders[part](self.mesh, progs.params,
+                                           progs.hyper, mc, self.cfg.compute,
+                                           depth_ratio),
+                "prune": sharded_prune(self.mesh, mc),
+            }
+        return self._sharded[sig]
+
     def render_frame(self, frame: Frame) -> dict:
-        """Render the current model at a frame's camera."""
+        """Render the current model at a frame's camera (every rank holds
+        the whole pool between updates)."""
         model = self.model
         cam = frame.camera_in_model()
         progs = self.programs_for(cam.height, cam.width, model.capacity)
@@ -432,15 +517,26 @@ class Mapper:
         model.ensure_free_slots(progs.max_new)
         if model.capacity != progs.capacity:
             progs = self.programs_for(h, w, model.capacity)
+        sharded = (None if self.mesh is None
+                   else self._sharded_programs(progs))
+        surf, adam = model.surfels, model.adam
+        if sharded is not None:
+            from ..parallel.sharded import shard_model_state
+            surf, adam = shard_model_state(self.mesh, surf, adam)
+        densify = (progs.densify if sharded is None else
+                   lambda s, a, c, g, initialize:
+                   sharded["densify"][initialize](s, a, c, g))
+        optimize = progs.optimize if sharded is None else sharded["optimize"]
+        prune = progs.prune if sharded is None else sharded["prune"]
 
         with prof.phase("map.densify"):
-            model.surfels, model.adam, n_new, sampled = progs.densify(
-                model.surfels, model.adam, cam, self._gumbel(h * w),
+            surf, adam, n_new, sampled = densify(
+                surf, adam, cam, self._gumbel(h * w),
                 initialize=initialize_model)
             n_new = int(n_new)
         logger.info(f"Adding {n_new} new gaussians")
         self._last_densify_mask = sampled
-        if self.cfg.logging.enable:
+        if self.cfg.logging.enable and self.writes:
             get_datalogger(self.cfg).log_image(
                 "frame/densify_mask", sampled.cpu().numpy().astype(np.float32))
 
@@ -451,15 +547,18 @@ class Mapper:
             kf = self._stack_keyframes(kf_cap)
         with prof.phase("map.optimize"):
             kf_indices = self._draw_keyframes(kf.probs, progs.n_blocks())
-            model.surfels, model.adam, ema, n_iters = progs.optimize(
-                model.surfels, model.adam, kf, kf_indices)
+            surf, adam, ema, n_iters = optimize(surf, adam, kf, kf_indices)
             ema_value = float(ema)   # waits for the device
         logger.debug(f"optimize done after {n_iters} iters, "
                      f"loss_ema={ema_value:.4f}")
 
         with prof.phase("map.prune"):
-            model.surfels, n_pruned = progs.prune(model.surfels)
+            surf, n_pruned = prune(surf)
             n_pruned = int(n_pruned)
+        if sharded is not None:
+            from ..parallel.sharded import gather_model_state
+            surf, adam = gather_model_state(self.mesh, surf, adam)
+        model.surfels, model.adam = surf, adam
         logger.info(f"Pruning {n_pruned} gaussians")
         self.last_ema = ema
         self.last_iters = n_iters

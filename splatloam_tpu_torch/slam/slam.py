@@ -5,6 +5,14 @@ keyframe / submap-rollover decisions, odometry accumulation
 wTf = wTm @ mTkf @ kfTf (on the host, float64), per-frame data logging,
 and the results artifact contract (cfg.yaml / odom.txt / graph.yaml /
 models/*.ply).
+
+With ``parallel.data * parallel.model`` > 1 every rank runs the same
+frames (the mapper's collectives need all of them), and whatever a rank
+decides from a float must be the same on every rank, or the next
+collective deadlocks: the tracked pose and the keyframe decision come
+from rank 0 by broadcast (the mapper's draws too), and the pool every
+rank holds between updates is the same gathered one.  Only rank 0
+writes results, checkpoints and logger output.
 """
 from __future__ import annotations
 
@@ -18,7 +26,7 @@ from ..config import (Configuration, TrajectoryWriterType,
 from ..device import resolve_device
 from ..io import ply as plyio
 from ..io.trajectory import trajectory_writer_available
-from ..logging_backends import get_datalogger
+from ..logging_backends import DataLoggerDummy, get_datalogger
 from ..logging_utils import get_logger
 from ..model import surfels as S
 from ..model.frame import Frame
@@ -48,6 +56,32 @@ class SLAM:
         self.profiler = get_profiler()
         self._keyframes_since_ckpt = 0
 
+    @property
+    def writes(self) -> bool:
+        """Whether this process writes results and logs (rank 0 only)."""
+        return self.mapper.writes
+
+    def _dlog(self):
+        return get_datalogger(self.cfg) if self.writes else DataLoggerDummy()
+
+    def _agree_on_tracking(self, frame: Frame, new_keyframe: bool) -> bool:
+        """Under a mesh: rank 0's tracked pose and keyframe decision on
+        every rank."""
+        mesh = self.mapper.mesh
+        if mesh is None:
+            return new_keyframe
+        import torch
+        from ..parallel import collectives
+        buf = torch.zeros((17,), dtype=torch.float64, device=mesh.device)
+        buf[:16] = torch.as_tensor(self.tracker.keyframe_T_frame,
+                                   dtype=torch.float64).reshape(-1)
+        buf[16] = float(new_keyframe)
+        buf = collectives.broadcast_(buf, mesh.group("world")).cpu().numpy()
+        self.tracker.keyframe_T_frame = buf[:16].reshape(4, 4)
+        frame.model_T_frame = (self.local_models[-1].keyframes[-1]
+                               .model_T_frame @ self.tracker.keyframe_T_frame)
+        return bool(buf[16])
+
     def _current_odometry(self) -> np.ndarray:
         wTm = self.local_models[-1].world_T_model
         mTkf = self.local_models[-1].keyframes[-1].model_T_frame
@@ -56,7 +90,7 @@ class SLAM:
 
     def process(self, frame: Frame) -> None:
         """Per-frame protocol."""
-        dlog = get_datalogger(self.cfg)
+        dlog = self._dlog()
         dlog.set_timestamp(frame.timestamp)
 
         if len(self.frames) == 0:
@@ -71,7 +105,8 @@ class SLAM:
         with self.profiler.phase("track"):
             self.tracker.track(frame)
 
-        if self.tracker.require_new_keyframe():
+        if self._agree_on_tracking(frame,
+                                   self.tracker.require_new_keyframe()):
             logger.debug("New keyframe required")
             if self.local_models[-1].require_new_model():
                 self.initialize_new_local_model(frame)
@@ -89,7 +124,7 @@ class SLAM:
     def _log_frame(self, frame: Frame, dlog) -> None:
         """Per-frame observability: transform tree, input cloud, rendered
         depth/normal/depth-L1 images."""
-        if not self.cfg.logging.enable:
+        if not self.cfg.logging.enable or not self.writes:
             return
         lmodel = self.local_models[-1]
         dlog.log_transform("world/model", lmodel.world_T_model)
@@ -124,7 +159,7 @@ class SLAM:
         self._debug_check_state()
         with self.profiler.phase("register_keyframe"):
             self.tracker.register_keyframe(frame)
-        get_datalogger(self.cfg).log_model(
+        self._dlog().log_model(
             "world/model", self.local_models[-1].surfels)
 
     def initialize_new_local_model(self, frame: Frame) -> None:
@@ -146,7 +181,7 @@ class SLAM:
         self.tracker.register_model(lmodel)
         self.tracker.register_keyframe(frame)
         # the caller appends the frame to self.frames, once
-        get_datalogger(self.cfg).log_model("world/model", lmodel.surfels)
+        self._dlog().log_model("world/model", lmodel.surfels)
 
     def _debug_check_state(self) -> None:
         """Sanitizer (logging.debug_checks): active surfel params + Adam
@@ -167,13 +202,17 @@ class SLAM:
             return
         self._keyframes_since_ckpt += 1
         if self._keyframes_since_ckpt >= every:
-            from ..checkpoint import save_checkpoint
-            with self.profiler.phase("checkpoint"):
-                save_checkpoint(ckpt_dir, self)
+            if self.writes:
+                from ..checkpoint import save_checkpoint
+                with self.profiler.phase("checkpoint"):
+                    save_checkpoint(ckpt_dir, self)
             self._keyframes_since_ckpt = 0
 
-    def save_results(self) -> Path:
-        """Write cfg.yaml / odom.txt / graph.yaml / models/*.ply."""
+    def save_results(self) -> Path | None:
+        """Write cfg.yaml / odom.txt / graph.yaml / models/*.ply (on rank 0
+        under a mesh; the other ranks write nothing and return None)."""
+        if not self.writes:
+            return None
         ofolder = self.cfg.output.folder or "results/"
         result_folder = Path(ofolder) / self.date_start
         result_folder.mkdir(parents=True, exist_ok=False)
