@@ -149,7 +149,30 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      torch.distributed.run --nproc-per-node 4`` with parallel.data=2
      parallel.model=2: 12 poses within 0.15 m of GT and one results
      folder.  Ranks that share one card measure correctness, not
-     scaling.
+     scaling;
+  8. the reconstruction configuration, ``[recon]``:
+     configs/ncd/quad-easy-mapping-gt.yaml as shipped (128x1024, GT
+     poses, 500 iterations an update, densify 0.4, a keyframe every 6
+     frames, 30-keyframe submaps, uniform replay, the active scale
+     penalty) on 25 sweeps of the street canyon cast by an OS0-128-like
+     sensor (128 beams over -45 to +45 degrees, 1024 steps, one return
+     per beam and step; 0.1 m apart), written in the KITTI layout and run
+     through ``cli.main(["slam", ...])`` with only the data section and
+     the output folder overridden, then ``mesh`` (TSDF, 0.15 m voxels)
+     and ``eval_recon`` against the world cloud (phase 6's protocol); it
+     prints frames/s, ms per update and per optimize iteration, the
+     pool's capacity at each update, the tiles whose list reached K at
+     each update's first rebin, the wide splats beyond the binner's
+     budgets and the (tile, splat) pairs they cost, peak device memory,
+     K1/K2/K3 launches over slam + mesh, mesh's steps and eval_recon's
+     metrics, and fails unless the command returns, odom.txt holds the
+     GT poses within 1e-5 m, K2 = K3 = the iterations run and K1 covers
+     them, the densify renders and mesh's renders, every keyframe
+     re-renders (coverage > 0.9, median depth L1 < 0.25 m), the pool
+     reaches 131,072 rows, the mesh's accuracy is below
+     RECON_ACC_LIMIT_CM, and K1, K2 + K3's gradient hold to their plain
+     versions on the last pool at 2048 tiles (timed beside their
+     bounds).
 
 It imports nothing of JAX.  It prints one line per kernel check, the
 kernels' JSON line, the card's name and power limit, and last
@@ -196,6 +219,13 @@ SENSOR_FOV_DEG = (-24.9, 2.0)
 
 def fail(msg: str) -> None:
     raise SystemExit(f"FAIL: {msg}")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
 
 
 def device_events(prof):
@@ -299,6 +329,34 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def fwd_bwd_bounds(args, out, tb, g, n_real: int, chunk: int):
+    """K1's and K2's bounds from this run's data on K1's arguments
+    ``args``, outputs ``out``, ``tb`` and cotangents ``g``: the pairs are
+    the slots each tile composited (up to its exit at T_EPS) times its
+    pixels; K2 also writes the rows of the ``n_real`` real slots.
+    -> (pairs, composited slots, K1's (ms, by), K2's (ms, by))."""
+    from splatloam_tpu_torch.ops.rasterizer.common import T_EPS
+    counts, rays = args[2], args[3]
+    n_live = ((tb > T_EPS).any(dim=1)).sum(dim=1)
+    slots = float(torch.minimum(counts.long(), n_live * chunk).sum())
+    pairs = slots * rays.shape[1]
+    return (pairs, slots,
+            bound(nbytes(*args, out, tb), pairs * FWD_OPS_PER_PAIR),
+            bound(nbytes(*args, tb, out, g) + n_real * 64,
+                  pairs * BWD_OPS_PER_PAIR))
+
+
+def k3_bound(plan, r_alloc: int):
+    """K3's bound over a ranksum plan's real entries (the padding id's
+    skipped): each reads its row and plan entries once, and the whole
+    accumulator (zero-filled) is written once.  -> (the real entries
+    [E] bool, their count, (ms, by))."""
+    real3 = (plan.ranks >= 0) & (plan.ranks != plan.rank_of_id[-1])
+    n_real3 = int(real3.sum())
+    return real3, n_real3, bound(n_real3 * (64 + 4 + 4) + r_alloc * 64,
+                                 n_real3 * 16)
 
 
 def make_scene(rng, n: int, h: int, w: int, dev):
@@ -405,13 +463,8 @@ def check_kernels(dev, rng) -> dict:
             continue
 
         # work this run's data needs: the slots each tile composited
-        n_live = ((tb > common.T_EPS).any(dim=1)).sum(dim=1)
-        slots = torch.minimum(tiles.counts.long(), n_live * params.chunk)
-        pairs = float(slots.sum()) * tiles.rays_t.shape[1]
-        b1, by1 = bound(nbytes(*args, out, tb), pairs * FWD_OPS_PER_PAIR)
-        # K2 writes the rows of the real slots
-        b2, by2 = bound(nbytes(*args, tb, out, g) + int(real.sum()) * 64,
-                        pairs * BWD_OPS_PER_PAIR)
+        pairs, slots, (b1, by1), (b2, by2) = fwd_bwd_bounds(
+            args, out, tb, g, int(real.sum()), params.chunk)
         results["K1_fwd"] = dict(max_abs_err=err1, ms=ms1, plain_ms=pms1,
                                  bound_ms=b1, bound_by=by1, library_ms=None)
         results["K2_bwd"] = dict(max_abs_err=err2, ms=ms2, plain_ms=pms2,
@@ -446,7 +499,7 @@ def check_kernels(dev, rng) -> dict:
 
         ms3 = time_ms(lambda: kernels.ranksum_rows(*k3_args))
         pms3 = event_ms(lambda: kernels.ranksum_rows_plain(*k3_args))
-        real3 = (plan.ranks >= 0) & (plan.ranks != plan.rank_of_id[-1])
+        real3, n_real3, (b3, by3) = k3_bound(plan, r_alloc)
         rank_real = plan.ranks[real3].long()
         rows_real3 = rows[plan.pos[real3].long()]
         lib3 = time_ms(lambda: rows.new_zeros((r_alloc, 16)).index_add_(
@@ -454,11 +507,8 @@ def check_kernels(dev, rng) -> dict:
         report("K3_ranksum[main]", err3, tol34, ms3, pms3, lib3)
         confirm_k3_cause(kernels, rows, plan, r_alloc, n_rows)
         E = plan.pos.numel()
-        n_real3 = int(real3.sum())
-        # the real entries' rows and plan entries read once, the whole
-        # accumulator (zero-filled) written once; the earlier bound read
-        # every entry's row, the pad segment's included
-        b3, by3 = bound(n_real3 * (64 + 4 + 4) + r_alloc * 64, n_real3 * 16)
+        # the earlier bound read every entry's row, the pad segment's
+        # included
         b3_all = bound(nbytes(rows, plan.pos, plan.ranks) + r_alloc * 64,
                        E * 16)[0]
         print(f"[kernel] K3 bound: {b3:.4f} ms ({by3}) over the {n_real3} "
@@ -490,7 +540,7 @@ def check_kernels(dev, rng) -> dict:
               f"real slots {n_real}", flush=True)
         results.update(check_fused_and_overflow(
             dev, kernels, binning, cuda_raster, tiles, bargs, bkw, dFg, dF4,
-            n_rows, float(slots.sum()), pairs, RS_GROUP * RS_GPS))
+            n_rows, slots, pairs, RS_GROUP * RS_GPS))
         results.update(check_flat_and_tps(
             kernels, cuda_raster, scene, params, tiles, F, (out, tb), g, dFg,
             dF4, pairs, results["K4_scatter_rows"]))
@@ -1770,6 +1820,50 @@ def sensor_sweep(rng, x: float, n: int, fov=SENSOR_FOV_DEG) -> np.ndarray:
     return np.concatenate(parts)[:n]
 
 
+def sensor_raster(rng, x: float, h: int, w: int, fov) -> np.ndarray:
+    """[<= h*w, 3] returns of a spinning LiDAR at (x, 0, 0) in the street
+    canyon, in the sensor's frame: h beams spread evenly over the vertical
+    field of view ``fov`` (degrees) and w azimuth steps, each ray
+    jittered within its cell and cast against street_world's surfaces
+    (facades, cross walls, ground, poles); a ray that hits nothing (the
+    sky) returns no point.  One return per beam and step, as an Ouster
+    sensor gives, where ``sensor_sweep`` draws the world's points."""
+    lo, hi = np.radians(fov[0]), np.radians(fov[1])
+    el = hi - (np.arange(h)[:, None] + rng.uniform(0, 1, (h, w))) \
+        * (hi - lo) / h
+    az = -np.pi + (np.arange(w)[None, :] + rng.uniform(0, 1, (h, w))) \
+        * 2 * np.pi / w
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).reshape(-1, 3)
+    o = np.array([x, 0.0, 0.0])
+    best = np.full(len(d), np.inf)
+
+    def keep(t, ok):
+        np.minimum(best, np.where(ok & (t > 0), t, np.inf), out=best)
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for axis, level, (a1, lo1, hi1), (a2, lo2, hi2) in (
+                (1, -9.0, (0, -60, 60), (2, -1.7, 8.0)),     # facades
+                (1, 11.0, (0, -60, 60), (2, -1.7, 8.0)),
+                (0, -55.0, (1, -9, 11), (2, -1.7, 8.0)),     # cross walls
+                (0, 58.0, (1, -9, 11), (2, -1.7, 8.0)),
+                (2, -1.7, (0, -60, 60), (1, -9, 11))):       # ground
+            t = (level - o[axis]) / d[:, axis]
+            p = o + t[:, None] * d
+            keep(t, (p[:, a1] >= lo1) & (p[:, a1] <= hi1)
+                 & (p[:, a2] >= lo2) & (p[:, a2] <= hi2))
+        for cx in (-30.0, -10.0, 15.0, 35.0):                # poles
+            q = o[:2] - np.array([cx, 7.0])
+            a = (d[:, :2] ** 2).sum(-1)
+            b = 2 * (d[:, :2] @ q)
+            disc = b * b - 4 * a * ((q ** 2).sum() - 0.3 ** 2)
+            t = (-b - np.sqrt(disc)) / (2 * a)
+            z = t * d[:, 2]
+            keep(t, (disc >= 0) & (z >= -1.7) & (z <= 5.0))
+    hit = np.isfinite(best)
+    return (best[hit, None] * d[hit]).astype(np.float32)
+
+
 def run_slice(dev, rng, overrides=()):
     """Phase 3: Mapper.update_model at 64x1024 on a ~100k-surfel pool.
     Returns (the launch counts, (cfg, mapper, model, frames)) for phase
@@ -2313,71 +2407,87 @@ RECON_KEYS = ("MAE_accuracy (cm)", "MAE_completeness (cm)",
               "Chamfer_L1 (cm)", "F-score (%)")
 
 
-def run_mesh(dev, rdir: Path, tmp: Path) -> None:
-    """Phase 6: the port's ``mesh`` (TSDF, then grid Poisson) on phase 5's
-    results directory on ``dev``, and ``eval_recon`` of each mesh against
-    the street canyon's world cloud.  Fails if a mesh is empty or not
-    finite, if K1 did not launch in a ``mesh`` run, or if a metric is not
-    finite."""
-    from splatloam_tpu_torch import cli
-    from splatloam_tpu_torch.eval.recon import load_mesh
+def world_reference(tmp: Path) -> Path:
+    """The street canyon's world cloud (WORLD_POINTS, seed SEED) as a PLY
+    in ``tmp``: eval_recon's reference."""
     from splatloam_tpu_torch.io.ply import write_ply
-    from splatloam_tpu_torch.ops.rasterizer import kernels
-    from splatloam_tpu_torch.profiling import get_profiler
-
     world = street_world(np.random.default_rng(SEED), WORLD_POINTS)
     ref = tmp / "world.ply"
     write_ply(ref, {"x": world[:, 0], "y": world[:, 1], "z": world[:, 2]})
+    return ref
+
+
+def mesh_and_score(dev, rdir: Path, method: str, extra: list, tmp: Path,
+                   tag: str) -> dict:
+    """The port's ``mesh --method method`` on the results directory
+    ``rdir`` on ``dev``, then ``eval_recon`` of the mesh against the
+    street canyon's world cloud.  Fails if the mesh is empty or not
+    finite, if K1 did not launch in the ``mesh`` run, or if a metric is
+    not finite.  Returns the run's numbers: faces, mesh wall (s), K1
+    launches, keyframe renders (ms), steps (s), eval_recon wall (s) and
+    metrics."""
+    from splatloam_tpu_torch import cli
+    from splatloam_tpu_torch.eval.recon import load_mesh
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.profiling import get_profiler
+
+    ref = world_reference(tmp)
+    mesh = tmp / f"mesh_{tag}_{method}.ply"
+    torch.cuda.synchronize()
+    k1_before = kernels.KERNELS["K1_fwd"].launches
+    t = time.perf_counter()
+    cli.main(["mesh", str(rdir), "--device", dev.type, "-o", str(mesh),
+              *extra])
+    wall = time.perf_counter() - t
+    k1 = kernels.KERNELS["K1_fwd"].launches - k1_before
+    stats = get_profiler().stats
+    render_ms = [1e3 * x for x in stats["mesh.render"].samples]
+    steps = {k: stats[k].total for k in ("mesh.fuse", "mesh.marching_cubes",
+                                         "mesh.poisson") if k in stats}
+    verts, faces = load_mesh(mesh)
+    print(f"[{tag}] mesh {method}: {len(verts)} vertices, {len(faces)} "
+          f"faces in {wall:.3f} s; K1 launches {k1}; keyframe renders "
+          f"{[round(x, 3) for x in render_ms]} ms; "
+          + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in steps.items()),
+          flush=True)
+    if len(faces) == 0 or not np.isfinite(verts).all():
+        fail(f"mesh --method {method} wrote an empty or non-finite mesh")
+    if not k1:
+        fail(f"K1 was not launched in mesh --method {method}")
+    out = tmp / f"recon_{tag}_{method}.csv"
+    t = time.perf_counter()
+    cli.main(["eval_recon", str(ref), str(mesh), "--output", str(out),
+              "--mesh-sample-point", str(MESH_SAMPLES)])
+    wall_e = time.perf_counter() - t
+    with open(out) as f:
+        row = dict(zip(*[line.rstrip("\n").split(",") for line in f]))
+    metrics = {k: float(row[k]) for k in RECON_KEYS}
+    print(f"[{tag}] eval_recon {method} against the world cloud "
+          f"({WORLD_POINTS} points, {MESH_SAMPLES} mesh samples): "
+          f"{wall_e:.3f} s, "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()),
+          flush=True)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"eval_recon of the {method} mesh gave {metrics}")
+    return dict(faces=len(faces), wall=wall, k1=k1, render_ms=render_ms,
+                steps=steps, wall_e=wall_e, metrics=metrics)
+
+
+def run_mesh(dev, rdir: Path, tmp: Path) -> None:
+    """Phase 6: the port's ``mesh`` (TSDF, then grid Poisson) on phase 5's
+    results directory on ``dev``, and ``eval_recon`` of each mesh against
+    the street canyon's world cloud (``mesh_and_score``)."""
     summary = []
     for method, extra in (("tsdf", []),
                           ("poisson", ["--method", "poisson",
                                        "--poisson-width", "0.1"])):
-        mesh = tmp / f"mesh_{method}.ply"
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t = time.perf_counter()
-        cli.main(["mesh", str(rdir), "--device", dev.type, "-o", str(mesh),
-                  *extra])
-        wall = time.perf_counter() - t
-        launches = {k: v.launches for k, v in kernels.KERNELS.items()
-                    if v.launches}
-        stats = get_profiler().stats
-        render_ms = [1e3 * x for x in stats["mesh.render"].samples]
-        steps = {k: stats[k].total for k in ("mesh.fuse",
-                                             "mesh.marching_cubes",
-                                             "mesh.poisson") if k in stats}
-        verts, faces = load_mesh(mesh)
-        print(f"[mesh] {method}: {len(verts)} vertices, {len(faces)} faces "
-              f"in {wall:.3f} s; K1 launches {launches.get('K1_fwd', 0)} "
-              f"(all {launches}); keyframe renders "
-              f"{[round(x, 3) for x in render_ms]} ms; "
-              + ", ".join(f"{k} {1e3 * v:.3f} ms" for k, v in steps.items()),
-              flush=True)
-        if len(faces) == 0 or not np.isfinite(verts).all():
-            fail(f"mesh --method {method} wrote an empty or non-finite mesh")
-        if not launches.get("K1_fwd"):
-            fail(f"K1 was not launched in mesh --method {method}")
-        out = tmp / f"recon_{method}.csv"
-        t = time.perf_counter()
-        cli.main(["eval_recon", str(ref), str(mesh), "--output", str(out),
-                  "--mesh-sample-point", str(MESH_SAMPLES)])
-        wall_e = time.perf_counter() - t
-        with open(out) as f:
-            row = dict(zip(*[line.rstrip("\n").split(",") for line in f]))
-        metrics = {k: float(row[k]) for k in RECON_KEYS}
-        print(f"[mesh] eval_recon {method} against the world cloud "
-              f"({len(world)} points, {MESH_SAMPLES} mesh samples): "
-              f"{wall_e:.3f} s, "
-              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()),
-              flush=True)
-        if not all(np.isfinite(v) for v in metrics.values()):
-            fail(f"eval_recon of the {method} mesh gave {metrics}")
-        summary.append(f"{method}: {len(faces)} faces, K1 "
-                       f"{launches.get('K1_fwd', 0)}, render "
-                       f"{np.mean(render_ms):.3f} ms/keyframe, mesh "
-                       f"{wall:.3f} s, eval_recon {wall_e:.3f} s, "
+        r = mesh_and_score(dev, rdir, method, extra, tmp, "mesh")
+        summary.append(f"{method}: {r['faces']} faces, K1 {r['k1']}, "
+                       f"render {np.mean(r['render_ms']):.3f} ms/keyframe, "
+                       f"mesh {r['wall']:.3f} s, eval_recon "
+                       f"{r['wall_e']:.3f} s, "
                        + ", ".join(f"{k} {v:.4f}"
-                                   for k, v in metrics.items()))
+                                   for k, v in r["metrics"].items()))
     # the CLI logs every step: repeat the phase's numbers after the logs
     print(f"[mesh] summary: {'; '.join(summary)}", flush=True)
 
@@ -3156,10 +3266,389 @@ def run_parallel(dev, slice_state, seq_args, poses, fps5: float,
     parallel_cli(dev, seq_args, poses, fps5, tmp)
 
 
-def check_rerender(mapper, frame, tag, surf=None, params=None):
+# ---------------------------------------------------------------------------
+# phase 8: the reconstruction configuration through slam, mesh, eval_recon
+# ---------------------------------------------------------------------------
+
+RECON_CFG = "configs/ncd/quad-easy-mapping-gt.yaml"
+# the Newer College Dataset's Ouster OS0-128: 90 degrees of vertical field
+# of view, 10 Hz, carried by hand at a walk (0.1 m a sweep); one keyframe
+# every 6 frames (tracking.keyframe_threshold_nframes 5: a new keyframe
+# once more than 5 frames were tracked), so 25 sweeps give the updates at
+# frames 0, 6, 12, 18, 24.  At 0.3 m a sweep (3 m/s) the newest keyframe
+# re-renders at coverage 0.884 (PERF.md, the reconstruction findings)
+RECON_FOV_DEG = (-45.0, 45.0)
+RECON_SWEEPS, RECON_STEP_M = 25, 0.1
+# the GT poses go through float64 only, and odom.txt (TUM, 4 decimals)
+# holds them exactly where they sit on that grid
+RECON_POSE_TOL_M = 1e-5
+# mesh's TSDF voxel: at the default 0.1 m, the 90-degree field of view
+# sees the canyon's cross walls 113 m apart and its facades' tops, a grid
+# over eval/tsdf.py's MAX_VOXELS (1140 x 217 x 139 voxels); the
+# truncation stays 3 voxels, as the defaults' 0.1 / 0.3
+RECON_MESH_ARGS = ["--voxel-size", "0.15", "--trunc", "0.45"]
+# eval_recon's MAE accuracy limit (cm), written before the chip run from
+# a CPU rehearsal at 32x256 (16.3 cm there; PERF.md section 2)
+RECON_ACC_LIMIT_CM = 20.0
+
+
+class ReconProbe:
+    """Observes the mapper inside ``cli.main(["slam", ...])`` without
+    changing what it computes: wraps ``Mapper.update_model`` (the pool's
+    capacity before and after each update, its active surfels and
+    iterations, the mapper itself) and the mapper's ``prepare_tiles``
+    (at each update's first rebin, the tiles whose list reached K).
+    Restores both on exit."""
+
+    def __init__(self):
+        self.updates: list[dict] = []
+        self.mapper = None
+
+    def __enter__(self):
+        from splatloam_tpu_torch.slam import mapper as mapper_mod
+        self._mod = mapper_mod
+        self._update = mapper_mod.Mapper.update_model
+        self._prep = mapper_mod.prepare_tiles
+        probe = self
+
+        def update_model(mapper, frame, initialize_model=False):
+            probe.mapper = mapper
+            rec = dict(cap_before=mapper.model.capacity, k_full=None)
+            probe.updates.append(rec)
+            probe._update(mapper, frame, initialize_model)
+            rec.update(cap=mapper.model.capacity,
+                       active=mapper.model.no_gaussians,
+                       iters=mapper.last_iters)
+
+        def prepare_tiles(*a, **kw):
+            tiles = probe._prep(*a, **kw)
+            rec = probe.updates[-1]
+            if rec["k_full"] is None:
+                k = tiles.lists.shape[-1]
+                rec["k_full"] = (int((tiles.counts >= k).sum()),
+                                 tiles.counts.numel(), k)
+            return tiles
+
+        mapper_mod.Mapper.update_model = update_model
+        mapper_mod.prepare_tiles = prepare_tiles
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.Mapper.update_model = self._update
+        self._mod.prepare_tiles = self._prep
+
+
+def tum_error(odom_file: Path, poses) -> tuple[np.ndarray, np.ndarray]:
+    """Per-frame translation error (m) and rotation error (the largest
+    entry of R - R_gt) of a TUM-format odom.txt (t x y z qx qy qz qw)
+    against GT."""
+    from splatloam_tpu_torch.io.rotations import (quat_wxyz_from_xyzw,
+                                                  rotmat_from_quat)
+    est = np.loadtxt(odom_file, ndmin=2)
+    if len(est) != len(poses):
+        fail(f"{odom_file} holds {len(est)} poses, not {len(poses)}")
+    gt = np.stack(poses)
+    R = rotmat_from_quat(quat_wxyz_from_xyzw(est[:, 4:8]))
+    return (np.linalg.norm(est[:, 1:4] - gt[:, :3, 3], axis=-1),
+            np.abs(R - gt[:, :3, :3]).max(axis=(1, 2)))
+
+
+def wide_splat_overflow(surf, cam, params, margin_px: float) -> dict:
+    """The splats of ``surf`` seen from ``cam`` that need the sorted
+    binner's tier-2 or tier-3 window, against the budgets it keeps for
+    them (ops/rasterizer/binning.py ``_emit_sorted_keys``: tier 2 the
+    max(256, n / 16) widest, tier 3 the max(64, n / 256) widest, n the
+    pool's rows).  A splat past its tier's budget is listed only in the
+    windows of the tiers below: the binner's behaviour, shared with the
+    JAX package, counted here, with the (tile, splat) pairs it costs: the
+    tile lists of the exact binner (every tile a splat's extent reaches)
+    against the sorted binner's, neither capped."""
+    from splatloam_tpu_torch.ops.rasterizer import binning, common
+    th, tw = params.tile_h, params.tile_w
+    with torch.no_grad():
+        packed = common.pack_surfels(surf.params.xyz, surf.scaling,
+                                     surf.rotation, surf.opacity, cam.T_cw,
+                                     cam.K)
+        alive = packed.radius_px > 0
+        packed.radius_px = torch.where(alive, packed.radius_px + margin_px,
+                                       0.0)
+        packed.extent_px = torch.where(packed.extent_px > 0,
+                                       packed.extent_px + margin_px, 0.0)
+        n, n_alive = packed.depth.shape[0], int(alive.sum())
+        pairs_sorted = int(binning.build_tile_lists_sorted(
+            packed, params.height, params.width, th, tw, n_alive,
+            params.cap_ty, params.cap_tx)[1].sum())
+        pairs_exact = int(binning.build_tile_lists(
+            packed.map(lambda t: t[alive]), params.height, params.width,
+            th, tw, n_alive)[1].sum())
+    rx, ry = packed.extent_px[:, 0], packed.extent_px[:, 1]
+    ty, tx = params.height // th, params.width // tw
+    w2_ty, w2_tx = min(params.cap_ty, 2 * ty - 1), min(params.cap_tx, tx)
+    need2 = int((alive & ((rx > tw) | (ry > th))).sum())
+    need3 = int((alive & ((rx > (w2_tx // 2) * tw)
+                          | (ry > (w2_ty // 2) * th))).sum())
+    k2, k3 = min(n, max(256, n // 16)), min(n, max(64, n // 256))
+    return dict(alive=n_alive, need2=need2, k2=k2,
+                over2=max(0, need2 - k2), need3=need3, k3=k3,
+                over3=max(0, need3 - k3), pairs_exact=pairs_exact,
+                pairs_sorted=pairs_sorted)
+
+
+def check_recon_kernels(mapper, frame, rng) -> dict:
+    """K1, K2 and K3 on the last update's pool at keyframe ``frame``, with
+    the mapper's render parameters (128x1024: 2048 tiles): K1's outputs
+    against its plain version (and K1, K7 against the float64 plain
+    version, ``check_fwd``), K2's rows and K3's sum of them against their
+    plain versions at phase 1's tolerances, and the gradient by surfel
+    through K2 + K3 against the plain versions' at the repo's gradient
+    tolerance, 2e-3 x max|g|; each kernel timed (graph replay) with its
+    bound from this run's data.  -> {kernel: (ms, bound ms)}."""
+    from splatloam_tpu_torch.ops.rasterizer import binning, common, kernels
+    from splatloam_tpu_torch.ops.rasterizer.cuda_raster import (
+        RS_GROUP, prepare_tiles)
+
+    model = mapper.model
+    progs = mapper.programs_for(frame.camera.height, frame.camera.width,
+                                model.capacity)
+    params = progs.params
+    cam = frame.camera_in_model()
+    s = model.surfels
+    scene = (s.params.xyz, s.scaling, s.rotation, s.opacity, cam.T_cw,
+             cam.K)
+    with torch.no_grad():
+        tiles = prepare_tiles(*scene, params,
+                              margin_px=mapper.cfg.compute.bin_margin_px)
+        F = binning.pack_features(common.pack_surfels(*scene)).contiguous()
+    args = (F, tiles.lists, tiles.counts, tiles.rays_t, tiles.pix_t)
+    chunk, n_rows = params.chunk, F.shape[0]
+    out, tb, _, ms1, _ = check_fwd("K1_fwd[recon]", kernels, args, chunk,
+                                   False, False, timed=True, tag="recon")
+    g = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32),
+                     device=out.device)
+    bkw = dict(chunk=chunk, width=params.width, with_dist=False)
+    bargs = (*args, tb, out, g)
+    dFg = kernels.raster_bwd(*bargs, **bkw)
+    dFg_p = kernels.raster_bwd_plain(*bargs, **bkw)
+    plan = tiles.plan
+    r_alloc = binning._ranksum_alloc(n_rows, RS_GROUP)
+    pad_rank = plan.rank_of_id[n_rows - 1:]
+
+    def k3_args(rows):
+        return (rows.reshape(-1, 16), plan.pos, plan.ranks, pad_rank,
+                r_alloc)
+
+    dFc = kernels.ranksum_rows(*k3_args(dFg))
+    dFc_k3p = kernels.ranksum_rows_plain(*k3_args(dFg))
+    dFc_p = kernels.ranksum_rows_plain(*k3_args(dFg_p))
+    torch.cuda.synchronize()
+    # phase 1's tolerances: K2's rows at 2e-3 of the largest row entry
+    # (galpha's 1/max(1 - alpha, 1e-3) magnifies the float order), K3 at
+    # 1e-5 of its largest sum (the same rows in another order)
+    real = (torch.arange(tiles.lists.shape[1], device=F.device)[None, :]
+            < tiles.counts[:, None])
+    err2 = float((dFg - dFg_p)[real].abs().max())
+    tol2 = 2e-3 * float(dFg_p.abs().max())
+    err3 = float((dFc - dFc_k3p).abs().max())
+    tol3 = 1e-5 * max(1.0, float(dFc_k3p.abs().max()))
+    by_id = plan.rank_of_id.long()
+    grad, grad_p = dFc[by_id][:-1], dFc_p[by_id][:-1]
+    err_g = float((grad - grad_p).abs().max())
+    tol_g = 2e-3 * float(grad_p.abs().max())
+    print(f"[recon] K2 + K3 gradient by surfel vs the plain versions': "
+          f"max_abs_err {err_g:.3e} (tol {tol_g:.3e})", flush=True)
+    if not err_g <= tol_g:
+        fail(f"the K2 + K3 gradient at 2048 tiles disagrees with the plain "
+             f"versions': {err_g} > {tol_g}")
+    ms2 = time_ms(lambda: kernels.raster_bwd(*bargs, **bkw))
+    pms2 = event_ms(lambda: kernels.raster_bwd_plain(*bargs, **bkw), 3)
+    report("K2_bwd[recon]", err2, tol2, ms2, pms2)
+    rows = dFg.reshape(-1, 16)
+    real3, n_real3, (b3, by3) = k3_bound(plan, r_alloc)
+    rank_real, rows_real3 = plan.ranks[real3].long(), rows[
+        plan.pos[real3].long()]
+    ms3 = time_ms(lambda: kernels.ranksum_rows(*k3_args(dFg)))
+    pms3 = event_ms(lambda: kernels.ranksum_rows_plain(*k3_args(dFg)))
+    lib3 = time_ms(lambda: rows.new_zeros((r_alloc, 16)).index_add_(
+        0, rank_real, rows_real3))
+    report("K3_ranksum[recon]", err3, tol3, ms3, pms3, lib3)
+    confirm_k3_cause(kernels, rows, plan, r_alloc, n_rows,
+                     "the recon pool's plan")
+    pairs, _, (b1, by1), (b2, by2) = fwd_bwd_bounds(
+        args, out, tb, g, int(real.sum()), chunk)
+    print(f"[recon] kernel shapes: {tiles.lists.shape[0]} tiles x "
+          f"{tiles.rays_t.shape[1]} px, K {tiles.lists.shape[1]}, pool "
+          f"rows {n_rows - 1}, composited pairs {pairs:.0f}, ranksum "
+          f"entries {plan.pos.numel()} ({n_real3} real); bounds K1 "
+          f"{b1:.4f} ms ({by1}), K2 {b2:.4f} ms ({by2}), K3 {b3:.4f} ms "
+          f"({by3})", flush=True)
+    return {"K1_fwd": (ms1, b1), "K2_bwd": (ms2, b2), "K3_ranksum": (ms3, b3)}
+
+
+def run_recon(dev, tmp: Path, overrides=()):
+    """Phase 8: configs/ncd/quad-easy-mapping-gt.yaml (the reconstruction
+    experiment: GT poses, 500 iterations an update, densify 0.4, a
+    keyframe every 6 frames, 30-keyframe submaps) on RECON_SWEEPS sweeps of
+    the street canyon cast in the OS0-128's field of view
+    (``sensor_raster``), written in the KITTI layout and run through ``cli.main(["slam",
+    ...])`` with only the data section and the output folder overridden
+    (``overrides``: more, for a rehearsal at a small size), then ``mesh``
+    (TSDF) and ``eval_recon`` against the world cloud; then each keyframe
+    re-rendered, the wide splats against the binner's budgets, and K1, K2,
+    K3 on the last pool (``check_recon_kernels``).  Returns the mapper
+    of the run."""
+    from splatloam_tpu_torch import cli
+    from splatloam_tpu_torch.config import (TrackingMethod,
+                                            load_configuration)
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.postprocessing import ResultGraph
+    from splatloam_tpu_torch.profiling import get_profiler
+
+    os.chdir(Path(__file__).resolve().parent)   # inherit_from is relative
+    cfg = load_configuration(RECON_CFG, list(overrides))
+    pc, mc, tc = cfg.preprocessing, cfg.mapping, cfg.tracking
+    if not overrides and (
+            (pc.image_height, pc.image_width, mc.num_iterations,
+             mc.densify_percentage, tc.method, tc.keyframe_threshold_nframes,
+             mc.lmodel_threshold_nkeyframes, mc.lmodel_threshold_ngaussians,
+             mc.prob_view_last_keyframe) !=
+            (128, 1024, 500, 0.4, TrackingMethod.gt, 5, 30, None, None)):
+        fail(f"{RECON_CFG} no longer holds the reconstruction settings")
+    h, w = pc.image_height, pc.image_width
+    rng = np.random.default_rng(SEED)
+    poses, clouds = [], []
+    for i in range(RECON_SWEEPS):
+        pose = np.eye(4)
+        pose[0, 3] = RECON_STEP_M * i
+        poses.append(pose)
+        clouds.append(sensor_raster(rng, RECON_STEP_M * i, h, w,
+                                    RECON_FOV_DEG))
+    seq, gt = write_kitti_layout(tmp / "recon", poses, clouds)
+    out = tmp / "recon" / "results"
+    argv = ["slam", RECON_CFG, "--device", dev.type,
+            "data.dataset_type=kitti",
+            f"data.cloud_reader.cloud_folder={seq}",
+            f"data.trajectory_reader.filename={gt}",
+            f"output.folder={out}", *overrides]
+    n_pts = [len(c) for c in clouds]
+    print(f"[recon] {RECON_SWEEPS} sweeps of {h} beams x {w} steps in the "
+          f"vertical field of view {RECON_FOV_DEG} deg, {RECON_STEP_M} m "
+          f"apart at 10 Hz: {min(n_pts)}-{max(n_pts)} returns each; "
+          f"cli.main({argv})", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with ReconProbe() as probe:
+        cli.main(argv)
+    wall = time.perf_counter() - t
+    stats = get_profiler().stats
+    update_ms = [1e3 * x for x in stats["map_update"].samples]
+    opt_s = stats["map.optimize"].total
+    rdir = only_dir(out)
+    mesh = mesh_and_score(dev, rdir, "tsdf", RECON_MESH_ARGS, tmp, "recon")
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()
+                if v.launches}
+    peak = torch.cuda.max_memory_allocated()
+    mapper, ups = probe.mapper, probe.updates
+
+    iters = sum(u["iters"] for u in ups)
+    graph = ResultGraph.from_yaml(rdir / "graph.yaml")
+    kf_frames = sorted(round(f.timestamp / 0.1) for f in graph.frames)
+    print(f"[recon] slam: {RECON_SWEEPS / wall:.3f} frames/s over the "
+          f"command's {wall:.3f} s; keyframes at frames {kf_frames}, "
+          f"submaps {len(graph.models)}; keyframe updates "
+          f"{[round(x, 3) for x in update_ms]} ms, optimize "
+          f"{1e3 * opt_s / iters:.3f} ms/iteration over {iters} iterations",
+          flush=True)
+    for i, u in enumerate(ups):
+        kf = u["k_full"]
+        grew = (f", doubled from {u['cap_before']}"
+                if u["cap"] != u["cap_before"] else "")
+        print(f"[recon] update {i} (frame {kf_frames[i]}): capacity "
+              f"{u['cap']}{grew}, {u['active']} active surfels after it, "
+              f"{u['iters']} iterations; at its first rebin {kf[0]} of "
+              f"{kf[1]} tiles held K = {kf[2]} splats", flush=True)
+    k1 = launches.get("K1_fwd", 0)
+    densify_renders = sum(1 for i in range(len(ups)) if i)  # all but init
+    print(f"[recon] launches over slam + mesh {launches}; iterations "
+          f"{iters}, densify renders {densify_renders}, mesh renders "
+          f"{mesh['k1']}; peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated)",
+          flush=True)
+
+    if len(ups) != len(kf_frames) or len(update_ms) != len(ups) or \
+            len(graph.models) != 1:
+        fail(f"{len(ups)} updates, {len(update_ms)} map_update phases and "
+             f"{len(graph.models)} submaps for keyframes {kf_frames}")
+    if len(ups) < 3 or any(u["iters"] < mc.num_iterations for u in ups):
+        fail(f"the run made {len(ups)} updates of "
+             f"{[u['iters'] for u in ups]} iterations: fewer than 3 of "
+             f"{mc.num_iterations}")
+    if not overrides and ups[-1]["cap"] < 131_072:
+        fail(f"the last update's pool holds {ups[-1]['cap']} rows, fewer "
+             "than 131,072")
+    if launches.get("K2_bwd") != iters or \
+            launches.get("K3_ranksum") != iters:
+        fail(f"K2/K3 launched {launches.get('K2_bwd')}/"
+             f"{launches.get('K3_ranksum')} times for {iters} iterations")
+    if k1 < iters + densify_renders + mesh["k1"]:
+        fail(f"K1 launched {k1} times, fewer than the {iters} iterations, "
+             f"{densify_renders} densify renders and {mesh['k1']} mesh "
+             "renders")
+    t_err, r_err = tum_error(rdir / "odom.txt", poses)
+    print(f"[recon] odom.txt (TUM) against GT: max translation error "
+          f"{t_err.max():.3e} m, max rotation entry error {r_err.max():.3e} "
+          f"(tolerance {RECON_POSE_TOL_M})", flush=True)
+    if t_err.max() > RECON_POSE_TOL_M or r_err.max() > RECON_POSE_TOL_M:
+        fail("odom.txt is off the GT poses")
+    acc = mesh["metrics"]["MAE_accuracy (cm)"]
+    if not acc < RECON_ACC_LIMIT_CM:
+        fail(f"the mesh's accuracy {acc} cm is not below "
+             f"{RECON_ACC_LIMIT_CM} cm")
+
+    # each keyframe re-rendered from the final pool
+    for i, kf in enumerate(mapper.model.keyframes):
+        check_rerender(mapper, kf, "recon", what=f"keyframe {i}")
+    last = mapper.model.keyframes[-1]
+    progs = mapper.programs_for(h, w, mapper.model.capacity)
+    over = wide_splat_overflow(mapper.model.surfels, last.camera_in_model(),
+                               progs.params, cfg.compute.bin_margin_px)
+    print(f"[recon] wide splats at keyframe {len(mapper.model.keyframes) - 1}"
+          f" of the final pool ({over['alive']} in view of "
+          f"{mapper.model.capacity} rows): tier 2 needed by {over['need2']}"
+          f", budget {over['k2']}, {over['over2']} beyond it; tier 3 needed "
+          f"by {over['need3']}, budget {over['k3']}, {over['over3']} beyond "
+          f"it; (tile, splat) pairs listed {over['pairs_sorted']} of the "
+          f"{over['pairs_exact']} the exact binner lists", flush=True)
+    k = check_recon_kernels(mapper, last, np.random.default_rng(SEED))
+    torch.cuda.synchronize()
+    m = mesh["metrics"]
+    # the CLI logs every frame: repeat the phase's numbers after the logs
+    print(f"[recon] summary ({card()}): {RECON_CFG} at {h}x{w}, "
+          f"{RECON_SWEEPS} frames, {RECON_SWEEPS / wall:.3f} frames/s, "
+          f"updates {[round(x, 1) for x in update_ms]} ms, "
+          f"{1e3 * opt_s / iters:.3f} ms/iteration, capacities "
+          f"{[u['cap'] for u in ups]}, K-full tiles "
+          f"{[u['k_full'][0] for u in ups]}, K1/K2/K3 "
+          f"{k1}/{launches.get('K2_bwd')}/{launches.get('K3_ranksum')}, "
+          f"peak {peak / 2 ** 30:.3f} GiB; mesh {mesh['wall']:.3f} s "
+          f"(renders {[round(x, 3) for x in mesh['render_ms']]} ms, "
+          + ", ".join(f"{k_} {v:.3f} s" for k_, v in mesh["steps"].items())
+          + f"), eval_recon {mesh['wall_e']:.3f} s: "
+          + ", ".join(f"{k_} {v:.4f}" for k_, v in m.items())
+          + "; at 2048 tiles "
+          + ", ".join(f"{n} {ms:.4f} ms (bound {b:.4f})"
+                      for n, (ms, b) in k.items()), flush=True)
+    return mapper
+
+
+def check_rerender(mapper, frame, tag, surf=None, params=None,
+                   what: str = "keyframe 1"):
     """The optimized map (``surf`` rendered with ``params``, else the
-    mapper's) reproduces the keyframe's range image: coverage(alpha>0.5)
-    > 0.9 and median depth L1 < 0.25 m.  -> (coverage, median L1)."""
+    mapper's) reproduces the keyframe ``what``'s range image:
+    coverage(alpha>0.5) > 0.9 and median depth L1 < 0.25 m.
+    -> (coverage, median L1)."""
     from splatloam_tpu_torch.ops.rasterizer.api import render
     if surf is None:
         pkg = mapper.render_frame(frame)
@@ -3173,10 +3662,10 @@ def check_rerender(mapper, frame, tag, surf=None, params=None):
     l1 = (pkg["surf_depth"] - cam.depth).abs()[valid]
     cover = float((pkg["rend_alpha"][valid] > 0.5).float().mean())
     med_l1 = float(l1.median())
-    print(f"[{tag}] keyframe 1 re-render: coverage(alpha>0.5) {cover:.4f}, "
+    print(f"[{tag}] {what} re-render: coverage(alpha>0.5) {cover:.4f}, "
           f"median depth L1 {med_l1:.4f} m", flush=True)
     if not (cover > 0.9 and med_l1 < 0.25):
-        fail(f"[{tag}] the optimized map does not reproduce the keyframe")
+        fail(f"[{tag}] the optimized map does not reproduce {what}")
     return cover, med_l1
 
 
@@ -3503,13 +3992,16 @@ def main() -> int:
         run_mesh(dev, rdir, Path(tmp))
         t7 = time.perf_counter()
         run_parallel(dev, slice_state, data, poses, fps5, Path(tmp))
-    t8 = time.perf_counter()
-    # the host-bound phases 2 to 7 follow the host's pace, which differs
+        t8 = time.perf_counter()
+        run_recon(dev, Path(tmp))
+    t9 = time.perf_counter()
+    # the host-bound phases 2 to 8 follow the host's pace, which differs
     # between machines
     print(f"[time] build {t1 - t0:.1f} s, phase 1 {t2 - t1:.1f} s, phase 2 "
           f"{t3 - t2:.1f} s, phase 3 {t4 - t3:.1f} s, phase 4 "
           f"{t5 - t4:.1f} s, phase 5 {t6 - t5:.1f} s, phase 6 "
-          f"{t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s", flush=True)
+          f"{t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 "
+          f"{t9 - t8:.1f} s", flush=True)
 
     line = []
     for name, k in kernels.KERNELS.items():
@@ -3518,10 +4010,7 @@ def main() -> int:
                          replaces=k.replaces, launches=launches[name],
                          **results[name]))
     print(json.dumps({"kernels": line}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

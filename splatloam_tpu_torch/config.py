@@ -10,7 +10,7 @@ This is the PyTorch port's own copy of ``splatloam_tpu/config.py``: the
 schema and the YAML files are shared, only the rasterizer backends differ
 (``cuda`` = tiled hand-written kernels, ``eager`` = golden renderer).
 Sections absent in the reference: ``compute`` (backend/capacity/tiling)
-and ``parallel`` (mesh axes; the port is single-device so far).
+and ``parallel`` (mesh axes; ranks over torch.distributed, parallel/).
 """
 from __future__ import annotations
 
@@ -167,9 +167,10 @@ class MappingConfig:
     lmodel_threshold_ngaussians: Optional[int] = 150000
     lmodel_threshold_nkeyframes: Optional[int] = None
     # Extension (no reference counterpart): sample this many keyframes
-    # per Adam iteration and average their losses.  1 = reference
-    # semantics (one keyframe per iteration); the port's mapper so far
-    # supports only 1.
+    # per Adam iteration and average their losses, all views rendered
+    # through one launch of each kernel (api.render_batch).  1 = reference
+    # semantics (one keyframe per iteration); the sharded programs render
+    # one view per iteration.
     views_per_iteration: Optional[int] = 1
 
 
