@@ -172,7 +172,23 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
      reaches 131,072 rows, the mesh's accuracy is below
      RECON_ACC_LIMIT_CM, and K1, K2 + K3's gradient hold to their plain
      versions on the last pool at 2048 tiles (timed beside their
-     bounds).
+     bounds);
+  9. the compiled programs, ``[graphs]``: on phase 3's pool
+     (kitti.yaml, 64x1024, 300 iterations at rebin 16) the update under
+     "ranksum", "rmw", "fused", "plan" and with 3 views per iteration,
+     uncaptured twice and captured twice (the first with its capture,
+     the second replaying from block 0 on freshly loaded buffers); it
+     fails unless each captured update holds to the uncaptured ones
+     field by field (``spread_gate``: bitwise where the uncaptured runs
+     agree, within their spread where atomics part them), each kernel's
+     launches are equal on both paths and one block replays under
+     ``torch.cuda.set_sync_debug_mode("error")``; it prints ms per
+     iteration of both paths, two blocks of each under torch.profiler
+     (device busy, idle share), a GN solve on phase 4's last frame
+     captured against uncaptured (ms per solve of both), each graph's
+     captures, replays and memory, and the peak device memory.  Phases
+     3-5 and 8 run captured, as the entry points do on CUDA; phase 7's
+     sharded programs run uncaptured.
 
 It imports nothing of JAX.  It prints one line per kernel check, the
 kernels' JSON line, the card's name and power limit, and last
@@ -1987,7 +2003,7 @@ def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG):
     """Phase 4: a LiDAR sequence through Preprocessor + SLAM.process with
     configs/kitti/kitti.yaml as it is (gsaligner tracking).  ``fov``: the
     sensor's vertical field of view (sensor_sweep).  Returns (GT poses,
-    sweeps, frames/s)."""
+    sweeps, frames/s, the SLAM)."""
     from splatloam_tpu_torch import profiling
     from splatloam_tpu_torch.config import TrackingMethod, load_configuration
     from splatloam_tpu_torch.io.ply import load_surfel_ply
@@ -2020,6 +2036,8 @@ def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG):
     reset_datalogger()
     pre = Preprocessor(cfg, device=dev)
     slam = SLAM(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     def timed(fn, times, k1=None):
         # synchronized host time of each call, and K1's launches in it
@@ -2075,6 +2093,11 @@ def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG):
     print(f"[slam] fitness of frames 1-{SEQ_SWEEPS - 1} "
           f"{[round(f, 4) for f in fitness]}")
     print(f"[slam] launches over the sequence {launches}")
+    print(f"[slam] captured graphs (the entry points capture on CUDA): "
+          f"mapper blocks {graph_stats_line(slam.mapper.graph_stats())}; "
+          f"GN solves {graph_stats_line(slam.tracker.aligner.graph_stats())}"
+          f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     print("[slam] profiler report:\n" + prof.report(), flush=True)
 
     gt = np.stack(poses)
@@ -2136,7 +2159,7 @@ def run_sequence(dev, overrides=(), fov=SENSOR_FOV_DEG):
                      f"{m.no_gaussians} in the pool")
         print(f"[slam] save_results: cfg.yaml, odom.txt, graph.yaml and "
               f"{len(slam.local_models)} PLYs read back", flush=True)
-    return poses, clouds, SEQ_SWEEPS / wall
+    return poses, clouds, SEQ_SWEEPS / wall, slam
 
 
 # ---------------------------------------------------------------------------
@@ -2271,11 +2294,13 @@ def run_cli(dev, poses, clouds, inproc_fps: float, tmp: Path):
     # ends on the pruned count)
     out1 = tmp / "run1"
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t = time.perf_counter()
     cli.main(["slam", ODOM_CFG, "--device", dev.type, *data,
               f"output.folder={out1}"])
     wall1 = time.perf_counter() - t
+    peak1 = torch.cuda.max_memory_allocated()
     launches = {k: v.launches for k, v in kernels.KERNELS.items()
                 if v.launches}
     stats = get_profiler().stats
@@ -2390,7 +2415,8 @@ def run_cli(dev, poses, clouds, inproc_fps: float, tmp: Path):
           f"reader {read_ms:.3f} ms/sweep; slam {n / wall1:.3f} frames/s "
           f"over the command, {np.mean(plain):.3f} ms "
           f"a frame without an update, updates "
-          f"{[round(ms, 3) for ms in update_ms]} ms, max error "
+          f"{[round(ms, 3) for ms in update_ms]} ms (captured blocks), "
+          f"peak device memory {peak1 / 2**30:.3f} GiB, max error "
           f"{err.max():.4f} m, RPE {rpe_mean}, launches {launches}; wall: "
           f"slam {wall1:.3f} s, supervised {wall2:.3f} s (attempts at "
           f"checkpoint frames {starts}, max error {err2.max():.4f} m), VBR "
@@ -3207,6 +3233,10 @@ def run_parallel(dev, slice_state, seq_args, poses, fps5: float,
     cfg, mapper, model, frames = slice_state
     kf = mapper._stack_keyframes(model.kf_stack["K"].shape[0])
     surf = model.surfels
+    print("[parallel] the sharded programs run uncaptured (their gloo "
+          "collectives cannot be captured into a CUDA graph); the "
+          "single-device references run captured, as Mapper does on "
+          "CUDA", flush=True)
 
     def bin_at(cfg_b):
         progs = MapperPrograms(cfg_b, H, W, model.capacity)
@@ -3290,15 +3320,19 @@ RECON_MESH_ARGS = ["--voxel-size", "0.15", "--trunc", "0.45"]
 # eval_recon's MAE accuracy limit (cm), written before the chip run from
 # a CPU rehearsal at 32x256 (16.3 cm there; PERF.md section 2)
 RECON_ACC_LIMIT_CM = 20.0
+# phase 8's peak device memory on the H100 when the blocks ran uncaptured
+# (PERF.md, the reconstruction findings)
+RECON_PEAK_UNCAPTURED_GIB = 0.517
 
 
 class ReconProbe:
     """Observes the mapper inside ``cli.main(["slam", ...])`` without
     changing what it computes: wraps ``Mapper.update_model`` (the pool's
     capacity before and after each update, its active surfels and
-    iterations, the mapper itself) and the mapper's ``prepare_tiles``
-    (at each update's first rebin, the tiles whose list reached K).
-    Restores both on exit."""
+    iterations, the mapper itself) and ``MapperPrograms.optimize`` (the
+    tiles whose list reached K at each update's first rebin, binned again
+    from the pool and keyframe that rebin sees: inside a captured graph
+    the rebin itself reads nothing back).  Restores both on exit."""
 
     def __init__(self):
         self.updates: list[dict] = []
@@ -3308,7 +3342,7 @@ class ReconProbe:
         from splatloam_tpu_torch.slam import mapper as mapper_mod
         self._mod = mapper_mod
         self._update = mapper_mod.Mapper.update_model
-        self._prep = mapper_mod.prepare_tiles
+        self._optimize = mapper_mod.MapperPrograms.optimize
         probe = self
 
         def update_model(mapper, frame, initialize_model=False):
@@ -3320,22 +3354,21 @@ class ReconProbe:
                        active=mapper.model.no_gaussians,
                        iters=mapper.last_iters)
 
-        def prepare_tiles(*a, **kw):
-            tiles = probe._prep(*a, **kw)
-            rec = probe.updates[-1]
-            if rec["k_full"] is None:
-                k = tiles.lists.shape[-1]
-                rec["k_full"] = (int((tiles.counts >= k).sum()),
-                                 tiles.counts.numel(), k)
-            return tiles
+        def optimize(progs, surfels, adam, kf, kf_indices, capture=None):
+            tiles = progs.make_tiles(surfels, kf, kf_indices[0])
+            k = tiles.lists.shape[-1]
+            probe.updates[-1]["k_full"] = (int((tiles.counts >= k).sum()),
+                                           tiles.counts.numel(), k)
+            return probe._optimize(progs, surfels, adam, kf, kf_indices,
+                                   capture)
 
         mapper_mod.Mapper.update_model = update_model
-        mapper_mod.prepare_tiles = prepare_tiles
+        mapper_mod.MapperPrograms.optimize = optimize
         return self
 
     def __exit__(self, *exc):
         self._mod.Mapper.update_model = self._update
-        self._mod.prepare_tiles = self._prep
+        self._mod.MapperPrograms.optimize = self._optimize
 
 
 def tum_error(odom_file: Path, poses) -> tuple[np.ndarray, np.ndarray]:
@@ -3574,8 +3607,11 @@ def run_recon(dev, tmp: Path, overrides=()):
     print(f"[recon] launches over slam + mesh {launches}; iterations "
           f"{iters}, densify renders {densify_renders}, mesh renders "
           f"{mesh['k1']}; peak device memory "
-          f"{peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated)",
-          flush=True)
+          f"{peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated, "
+          f"the captured graphs' pools included; "
+          f"{RECON_PEAK_UNCAPTURED_GIB} GiB before the port captured); "
+          f"captured mapper blocks held at the end "
+          f"{graph_stats_line(mapper.graph_stats())}", flush=True)
 
     if len(ups) != len(kf_frames) or len(update_ms) != len(ups) or \
             len(graph.models) != 1:
@@ -3936,6 +3972,273 @@ def profile_optimize(cfg, mapper, model) -> None:
               f"{e.count:6d} x  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the compiled programs (graphs.py): captured against uncaptured
+# ---------------------------------------------------------------------------
+
+# the captured update against the first uncaptured one, field by field.
+# Where the two uncaptured runs agree exactly (no atomics on the path),
+# the captured run's largest difference within GRAPH_RTOL of the field's
+# largest magnitude.  Where they differ (K4, K5, K6 add by atomics, and
+# Adam with eps 1e-15 turns a float-order change into up to a learning
+# rate a step, so after 300 steps the runs have parted), the spread is
+# one draw of a random distance: the captured run's difference within
+# GRAPH_SPREAD x the spread at the 99th percentile of the per-surfel
+# difference or at its max (on the H100 one field's 99th percentile
+# moved 4.9x between draws while its max held); a scalar (the loss EMA),
+# whose one-draw ratio exceeds 3 about one time in five, within
+# GRAPH_SPREAD x its spread or GRAPH_SCALAR_RTOL of its value
+GRAPH_SPREAD = 3.0
+GRAPH_RTOL = 1e-6
+GRAPH_SCALAR_RTOL = 1e-2
+# (scatter, views_per_iteration) of phase 9's updates
+GRAPH_MODES = (("ranksum", 1), ("rmw", 1), ("fused", 1), ("plan", 1),
+               ("ranksum", 3))
+
+
+def update_fields(res) -> dict:
+    """An optimize result (surfels, adam, ema, iterations) -> {field:
+    tensor [active rows, ...] on the host}."""
+    from splatloam_tpu_torch.model import surfels as S
+    surf, adam, ema, _ = res
+    act = surf.active
+    out = {"ema": ema.reshape(1).cpu()}
+    for kind, tree in (("", surf.params), ("mu.", adam.mu),
+                       ("nu.", adam.nu)):
+        for name, a in zip(S.SurfelParams._fields, tree):
+            out[kind + name] = a[act].reshape(int(act.sum()), -1).cpu()
+    return out
+
+
+def spread_gate(u1: dict, u2: dict, c: dict) -> dict:
+    """{field: (ok, difference, spread)} of a captured result ``c``
+    against the first uncaptured one ``u1``, by the spread of the second
+    ``u2`` (GRAPH_SPREAD, GRAPH_RTOL): the difference and the spread are
+    (max, 99th percentile) of the per-row difference norms."""
+    out = {}
+    for k in u1:
+        d = torch.linalg.norm((c[k] - u1[k]).double(), dim=-1)
+        s = torch.linalg.norm((u2[k] - u1[k]).double(), dim=-1)
+        scale = float(u1[k].abs().max())
+        dd = (float(d.max()), float(torch.quantile(d, 0.99)))
+        ss = (float(s.max()), float(torch.quantile(s, 0.99)))
+        if ss[0] == 0.0:
+            ok = dd[0] <= GRAPH_RTOL * scale
+        elif d.numel() == 1:
+            ok = dd[0] <= max(GRAPH_SPREAD * ss[0], GRAPH_SCALAR_RTOL * scale)
+        else:
+            ok = any(a <= GRAPH_SPREAD * b + GRAPH_RTOL * scale
+                     for a, b in zip(dd, ss))
+        out[k] = (ok, dd, ss)
+    return out
+
+
+def hold_captured(what: str, u1, u2, c) -> None:
+    """Fail unless the captured result ``c`` holds to the uncaptured
+    ``u1`` by the spread ``u2`` - ``u1``: every field, the active mask and
+    the step and iteration counts exactly."""
+    if not all(torch.equal(r[0].active, u1[0].active) for r in (u2, c)):
+        fail(f"{what}: the active masks differ")
+    steps = {int(r[1].step) for r in (u1, u2, c)}
+    iters = {int(r[3]) for r in (u1, u2, c)}
+    gate = spread_gate(*(update_fields(r) for r in (u1, u2, c)))
+    print(f"[graphs] {what}: step {sorted(steps)}, iterations "
+          f"{sorted(iters)}, loss EMA {[float(r[2]) for r in (u1, u2, c)]}"
+          f" (uncaptured, uncaptured, captured); by field, captured - uncaptured max (p99) / "
+          f"the uncaptured spread max (p99): "
+          + ", ".join(f"{k} {d[0]:.2e} ({d[1]:.2e}) / {s[0]:.2e} "
+                      f"({s[1]:.2e}){'' if ok else ' FAIL'}"
+                      for k, (ok, d, s) in gate.items()), flush=True)
+    bad = [k for k, (ok, _, _) in gate.items() if not ok]
+    if len(steps) != 1 or len(iters) != 1 or bad:
+        fail(f"{what}: the captured update is off the uncaptured one "
+             f"(steps {steps}, iterations {iters}, fields {bad})")
+
+
+def graph_stats_line(stats: dict) -> str:
+    return "; ".join(
+        f"{sig}: captures {s['captures']}, replays {s['replays']}, pool "
+        f"{s['pool_bytes'] / 2**20:.1f} MiB, static buffers "
+        f"{s['static_bytes'] / 2**20:.1f} MiB" for sig, s in stats.items())
+
+
+def graphs_update(cfg, model, kf, scatter: str, views: int):
+    """Phase 9, one mode: the 300-iteration update from phase 3's pool
+    uncaptured twice, captured once (its first update at the signature:
+    block 0 uncaptured, the capture, the replays) and captured again
+    (the buffers loaded anew, replays only), on one set of keyframe
+    draws, each captured update held to the uncaptured ones; the
+    launches of each run, one block replayed under
+    set_sync_debug_mode("error").  Returns the ms per iteration of each
+    path."""
+    from splatloam_tpu_torch.ops.rasterizer import kernels
+    from splatloam_tpu_torch.slam.mapper import Mapper, MapperPrograms
+
+    cfg_m = copy.deepcopy(cfg)
+    cfg_m.compute.scatter = scatter
+    cfg_m.mapping.views_per_iteration = views
+    progs = MapperPrograms(cfg_m, H, W, model.capacity)
+    draw = Mapper(cfg_m, device=model.device, seed=SEED)
+    idx = draw._draw_keyframes(kf.probs, progs.n_blocks())
+    what = f"{scatter}" + (f", views_per_iteration {views}"
+                           if views > 1 else "")
+    runs, counts, ms = {}, {}, {}
+    for name, capture in (("u1", False), ("u2", False), ("c", True),
+                          ("c2", True)):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        runs[name] = progs.optimize(model.surfels, model.adam, kf, idx,
+                                    capture=capture)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t) * 1e3 / runs[name][3]
+        counts[name] = {k: v.launches for k, v in kernels.KERNELS.items()
+                        if v.launches}
+    hold_captured(what, runs["u1"], runs["u2"], runs["c"])
+    hold_captured(f"{what}, captured again (replays from block 0)",
+                  runs["u1"], runs["u2"], runs["c2"])
+    if not counts["u1"] == counts["u2"] == counts["c"] == counts["c2"]:
+        fail(f"{what}: launches captured {counts['c']} (again "
+             f"{counts['c2']}), uncaptured {counts['u1']}")
+    sig = progs.signature(kf.K.shape[0])
+    static, prog = progs._graphs[sig]
+    block = idx[0]
+    if progs.rebin_outside:
+        static.start_block(block)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if not progs.rebin_outside:
+            static.start_block(block)
+        prog.replay()
+    except RuntimeError as e:
+        fail(f"{what}: a block replay synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = ("the rebin outside the graph (its boolean-mask plan reads "
+             "back to the host), the replay alone" if progs.rebin_outside
+             else "the block's keyframe copy and its replay, the rebin "
+             "inside the graph")
+    print(f"[graphs] {what}: launches equal on both paths {counts['c']}; "
+          f"one block under set_sync_debug_mode('error'): {where}, no "
+          f"host sync; ms/iteration uncaptured {ms['u1']:.3f} / "
+          f"{ms['u2']:.3f}, captured {ms['c']:.3f} (with its capture) / "
+          f"{ms['c2']:.3f} (replays); {graph_stats_line(progs.graph_stats())}",
+          flush=True)
+    if progs.graph_stats()[sig]["replays"] == 0:
+        fail(f"{what}: the captured update replayed no block")
+    progs.release_graphs()
+    return ms
+
+
+def profile_paths(cfg, model, kf) -> None:
+    """Phase 9: two 16-iteration blocks of each path under torch.profiler
+    in this call: ms per iteration, device busy ms and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from splatloam_tpu_torch.slam.mapper import MapperPrograms
+
+    cfg = copy.deepcopy(cfg)
+    cfg.mapping.num_iterations = 31            # two blocks of 16
+    progs = MapperPrograms(cfg, H, W, model.capacity)
+    idx = torch.ones((progs.n_blocks(),), dtype=torch.long,
+                     device=model.device)
+    parts = []
+    for name, capture in (("uncaptured", False), ("captured", True),
+                          ("captured", True), ("uncaptured", False)):
+        progs.optimize(model.surfels, model.adam, kf, idx, capture=capture)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            n = progs.optimize(model.surfels, model.adam, kf, idx,
+                               capture=capture)[3]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total
+                   for e in device_events(prof)) / 1e3
+        parts.append(f"{name} {wall / n:.3f} ms/iteration (wall {wall:.3f} "
+                     f"ms, device busy {busy:.3f} ms, idle share "
+                     f"{1.0 - busy / wall:.4f})")
+    progs.release_graphs()
+    print(f"[graphs] two blocks of 16 iterations (ranksum) under "
+          f"torch.profiler, in turns: {'; '.join(parts)}", flush=True)
+
+
+def graphs_gn(dev, slam) -> None:
+    """Phase 9: one GN solve on phase 4's last frame (its source and its
+    keyframe's target) uncaptured twice and captured (warm-up, capture,
+    replays), held by the spread rule, each timed; phase 4's own captured
+    solves counted."""
+    from splatloam_tpu_torch.slam.tracker import (AlignerGN,
+                                                  gauss_newton_align)
+
+    seq = slam.tracker.aligner
+    print(f"[graphs] phase 4's GN solves: "
+          f"{graph_stats_line(seq.graph_stats())}", flush=True)
+    if not seq.graph_stats() or \
+            min(s["replays"] for s in seq.graph_stats().values()) == 0:
+        fail("phase 4's tracker replayed no captured GN solve")
+    aligner = AlignerGN(slam.cfg, device=dev)
+    aligner._target, aligner._source = seq._target, seq._source
+    depth, pts, normals, valid, K, h, w = seq._target
+    kw = aligner.solver_settings()
+    inputs = (torch.eye(4, device=dev), *seq._source, depth, pts, normals,
+              valid, K)
+    prog = aligner._program(inputs, h, w)
+    prog(*inputs)                        # warm-up and capture
+
+    def solve(fn, reps=20):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            T, fit = fn()
+            out = torch.cat([T.reshape(-1), fit.reshape(1)]).cpu()
+        return out, (time.perf_counter() - t) * 1e3 / reps
+
+    u1, ms_u = solve(lambda: gauss_newton_align(*inputs, h, w, **kw))
+    u2, _ = solve(lambda: gauss_newton_align(*inputs, h, w, **kw), 1)
+    c, ms_c = solve(lambda: prog(*inputs))
+    gate = spread_gate({"T": u1[None, :16], "fitness": u1[None, 16:]},
+                       {"T": u2[None, :16], "fitness": u2[None, 16:]},
+                       {"T": c[None, :16], "fitness": c[None, 16:]})
+    print(f"[graphs] GN solve ({kw['num_iterations']} iterations, "
+          f"{h}x{w}): captured - uncaptured (max) T {gate['T'][1][0]:.3e}, "
+          f"fitness {gate['fitness'][1][0]:.3e}, uncaptured spread T "
+          f"{gate['T'][2][0]:.3e}, fitness {gate['fitness'][2][0]:.3e}; "
+          f"fitness {float(c[16]):.4f}; ms per solve (with its read) "
+          f"uncaptured {ms_u:.3f}, captured {ms_c:.3f}; "
+          f"{graph_stats_line(aligner.graph_stats())}", flush=True)
+    if not all(ok for ok, _, _ in gate.values()):
+        fail(f"the captured GN solve is off the uncaptured one: {gate}")
+
+
+def run_graphs(dev, slice_state, slam) -> None:
+    """Phase 9: the compiled programs on phase 3's pool (kitti.yaml,
+    64x1024, 300 iterations at rebin 16): each mode's update uncaptured
+    twice and captured, two blocks of each path under torch.profiler, and
+    a GN solve on phase 4's last frame."""
+    cfg, mapper, model, frames = slice_state
+    kf = mapper._stack_keyframes(model.kf_stack["K"].shape[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[graphs] phase 3's pool: {model.no_gaussians} active surfels, "
+          f"capacity {model.capacity}; {cfg.mapping.num_iterations} "
+          f"iterations at rebin {cfg.compute.rebin_every}", flush=True)
+    ms = {}
+    for scatter, views in GRAPH_MODES:
+        ms[(scatter, views)] = graphs_update(cfg, model, kf, scatter, views)
+    profile_paths(cfg, model, kf)
+    graphs_gn(dev, slam)
+    print(f"[graphs] ms/iteration (uncaptured / captured replays) "
+          + ", ".join(f"{s}{'' if v == 1 else ' x3 views'} "
+                      f"{m['u1']:.3f} / {m['c2']:.3f}"
+                      for (s, v), m in ms.items())
+          + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB", flush=True)
+
+
 def ptxas_summary(log: str) -> str:
     """Each kernel's registers, stack frame and spill stores from nvcc's
     ``-Xptxas -v`` log, as "name<template args> regs/stack B/spill B" in
@@ -3984,7 +4287,7 @@ def main() -> int:
     t3 = time.perf_counter()
     launches, slice_state = run_slice(dev, rng)
     t4 = time.perf_counter()
-    poses, clouds, fps = run_sequence(dev)
+    poses, clouds, fps, slam4 = run_sequence(dev)
     t5 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         rdir, data, fps5 = run_cli(dev, poses, clouds, fps, Path(tmp))
@@ -3995,13 +4298,15 @@ def main() -> int:
         t8 = time.perf_counter()
         run_recon(dev, Path(tmp))
     t9 = time.perf_counter()
-    # the host-bound phases 2 to 8 follow the host's pace, which differs
+    run_graphs(dev, slice_state, slam4)
+    t10 = time.perf_counter()
+    # the host-bound phases 2 to 9 follow the host's pace, which differs
     # between machines
     print(f"[time] build {t1 - t0:.1f} s, phase 1 {t2 - t1:.1f} s, phase 2 "
           f"{t3 - t2:.1f} s, phase 3 {t4 - t3:.1f} s, phase 4 "
           f"{t5 - t4:.1f} s, phase 5 {t6 - t5:.1f} s, phase 6 "
           f"{t7 - t6:.1f} s, phase 7 {t8 - t7:.1f} s, phase 8 "
-          f"{t9 - t8:.1f} s", flush=True)
+          f"{t9 - t8:.1f} s, phase 9 {t10 - t9:.1f} s", flush=True)
 
     line = []
     for name, k in kernels.KERNELS.items():

@@ -76,7 +76,7 @@ def save_checkpoint(directory: str | Path, slam) -> Path:
             "world_T_model": np.asarray(model.world_T_model),
             "active": _np(model.surfels.active),
             # a scalar int32, as the JAX package keeps its Adam step
-            "adam_step": np.asarray(model.adam.step, np.int32),
+            "adam_step": np.asarray(int(model.adam.step), np.int32),
             "n_keyframes": np.array([len(model.keyframes)]),
         }
         for name, arr in zip(S.SurfelParams._fields, model.surfels.params):
@@ -127,8 +127,9 @@ def load_checkpoint(directory: str | Path, slam) -> int:
         model.surfels = S.Surfels(
             params=params(d, "param"),
             active=torch.from_numpy(np.array(d["active"], bool)).to(dev))
-        model.adam = S.AdamState(mu=params(d, "mu"), nu=params(d, "nu"),
-                                 step=int(d["adam_step"]))
+        model.adam = S.AdamState(
+            mu=params(d, "mu"), nu=params(d, "nu"),
+            step=S.adam_step_count(int(d["adam_step"]), dev))
         for k in range(int(d["n_keyframes"][0])):
             model.keyframes.append(_frame_from_arrays(d, f"kf{k}", dev))
         slam.local_models.append(model)

@@ -9,7 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .model.surfels import AdamState, SurfelParams, Surfels
+from .model.surfels import (AdamState, SurfelParams, Surfels,
+                            adam_step_count)
 
 
 def _params(d: dict, device) -> SurfelParams:
@@ -21,7 +22,8 @@ def _params(d: dict, device) -> SurfelParams:
 def surfels_from_numpy(params: dict, active, adam: dict | None,
                        device) -> tuple[Surfels, AdamState | None]:
     """params: {xyz, log_scale, quat, logit_opacity}; active [C] bool;
-    adam: {"mu": params-like, "nu": params-like, "step": int} or None."""
+    adam: {"mu": params-like, "nu": params-like, "step": int} or None;
+    the step becomes the port's 0-d int32 tensor on ``device``."""
     surfels = Surfels(params=_params(params, device),
                       active=torch.tensor(np.array(active, bool),
                                           device=device))
@@ -29,7 +31,7 @@ def surfels_from_numpy(params: dict, active, adam: dict | None,
     if adam is not None:
         state = AdamState(mu=_params(adam["mu"], device),
                           nu=_params(adam["nu"], device),
-                          step=int(adam["step"]))
+                          step=adam_step_count(int(adam["step"]), device))
     return surfels, state
 
 
@@ -39,7 +41,8 @@ def _to_numpy(p: SurfelParams) -> dict:
 
 
 def surfels_to_numpy(surfels: Surfels, adam: AdamState | None = None):
-    """-> (params dict, active [C] bool, adam dict or None)."""
+    """-> (params dict, active [C] bool, adam dict or None, its step a
+    Python int)."""
     state = None
     if adam is not None:
         state = {"mu": _to_numpy(adam.mu), "nu": _to_numpy(adam.nu),

@@ -103,6 +103,14 @@ def index_checks_active() -> bool:
     return _INDEX_DEPTH > 0
 
 
+def checks_active() -> bool:
+    """True under ``enable_checks`` (a mode other than "off") or while a
+    ``checked`` function runs: the checks read values back to the host,
+    so the mapper then runs its optimize loop uncaptured."""
+    return _FLOAT_CHECKS["nans"] or _FLOAT_CHECKS["infs"] or \
+        index_checks_active()
+
+
 def check_ids(name: str, ids: torch.Tensor, n_rows: int, lo: int = 0,
               mask: torch.Tensor | None = None) -> None:
     """Raise ``IndexError`` if an id of ``ids`` (where ``mask``) lies

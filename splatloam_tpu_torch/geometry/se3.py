@@ -69,8 +69,10 @@ def basis_from_normal(n: torch.Tensor) -> torch.Tensor:
     (seed axis x, fallback y when near-collinear)."""
     n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True),
                         min=1e-12)
-    ex = n.new_tensor([1.0, 0.0, 0.0]).expand(n.shape)
-    ey = n.new_tensor([0.0, 1.0, 0.0]).expand(n.shape)
+    # unit axes made on the device (no host copy: a captured graph may
+    # run this)
+    eye = torch.eye(3, dtype=n.dtype, device=n.device)
+    ex, ey = eye[0].expand(n.shape), eye[1].expand(n.shape)
     collinear = torch.abs(torch.abs(n[..., 0]) - 1.0) < 1e-3
     seed = torch.where(collinear[..., None], ey, ex)
     t_u = torch.linalg.cross(n, seed, dim=-1)
@@ -94,7 +96,9 @@ def invert_T(T: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     ti = -(Rt @ t[..., None])[..., 0]
     top = torch.cat([Rt, ti[..., None]], dim=-1)
-    bottom = T.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
+    # [0, 0, 0, 1] made on the device (no host copy: a captured graph may
+    # run this)
+    bottom = torch.eye(4, dtype=T.dtype, device=T.device)[3].expand(
         *top.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 

@@ -113,7 +113,9 @@ def depth_to_normal(depth: torch.Tensor, K: torch.Tensor,
     # degenerate pixels, which poisons gradients even under zero cotangents
     norm2 = torch.sum(n * n, dim=-1, keepdim=True)
     degenerate = norm2 <= 1e-24
-    n_safe = torch.where(degenerate, n.new_tensor([0.0, 0.0, 1.0]), n)
+    # +z made on the device (no host copy: a captured graph may run this)
+    z_axis = torch.eye(3, dtype=n.dtype, device=n.device)[2]
+    n_safe = torch.where(degenerate, z_axis, n)
     n_safe = n_safe / torch.sqrt(
         torch.sum(n_safe * n_safe, dim=-1, keepdim=True))
     n = torch.where(degenerate, torch.zeros_like(n_safe), n_safe)

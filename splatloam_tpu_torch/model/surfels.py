@@ -10,8 +10,10 @@ Counterpart of splatloam_tpu/model/surfels.py.  The pool is a padded
 Parameterization: xyz [C,3]; log-scale [C,2] (exp activation); wxyz
 quaternion [C,4] (normalized on use); logit opacity [C] (sigmoid
 activation).  Adam uses per-field learning rates with eps=1e-15 and one
-global step count.  Every function returns new tensors and leaves its
-inputs as they were.
+global step count, a 0-d int32 tensor on the pool's device as in the JAX
+package, so that an Adam step reads nothing from the host (a captured
+CUDA graph replays it with the step it finds there).  Every function
+returns new tensors and leaves its inputs as they were.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ class Surfels(NamedTuple):
 class AdamState(NamedTuple):
     mu: SurfelParams
     nu: SurfelParams
-    step: int
+    step: torch.Tensor           # [] int32, on the pool's device
 
 
 class AdamHyper(NamedTuple):
@@ -95,16 +97,22 @@ def empty_adam(capacity: int, device) -> AdamState:
     def zeros():
         return SurfelParams(*(torch.zeros_like(a) for a in
                               empty_surfels(capacity, device).params))
-    return AdamState(mu=zeros(), nu=zeros(), step=0)
+    return AdamState(mu=zeros(), nu=zeros(), step=adam_step_count(0, device))
+
+
+def adam_step_count(step: int, device) -> torch.Tensor:
+    """Adam's step count as the state holds it: a 0-d int32 tensor."""
+    return torch.tensor(step, dtype=torch.int32, device=device)
 
 
 def adam_step(surfels: Surfels, state: AdamState, grads: SurfelParams,
               hyper: AdamHyper) -> tuple[Surfels, AdamState]:
     """One masked Adam update; inactive slots are left untouched."""
     step = state.step + 1
-    t = np.float32(step)
-    c1 = float(np.float32(1.0) - np.float32(hyper.b1) ** t)
-    c2 = float(np.float32(1.0) - np.float32(hyper.b2) ** t)
+    # bias corrections on the device in float32, as the JAX package's
+    t = step.to(torch.float32)
+    c1 = 1.0 - hyper.b1 ** t
+    c2 = 1.0 - hyper.b2 ** t
     lrs = SurfelParams(xyz=hyper.lr_xyz, log_scale=hyper.lr_scale,
                        quat=hyper.lr_quat, logit_opacity=hyper.lr_opacity)
     active = surfels.active

@@ -12,6 +12,8 @@ outputs equal the JAX package's exactly: every sort is stable, as
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import common
@@ -148,6 +150,21 @@ def build_flat_lists(packed: common.PackedSurfels, height: int, width: int,
             start_clip.to(torch.int32), counts2.to(torch.int32))
 
 
+@functools.lru_cache(maxsize=None)
+def _window_offsets(w_ty: int, w_tx: int, skip_ty: int, skip_tx: int,
+                    device: torch.device) -> torch.Tensor:
+    """The (dy, dx) tile offsets [n, 2] int64 of a (w_ty x w_tx) window
+    minus its inner skip window, on ``device``.  Made once per window and
+    device: the host-to-device copy may not run inside a captured CUDA
+    graph, which reads the cached tensor at each replay."""
+    offs = [(dy, dx)
+            for dy in range(-(w_ty // 2), w_ty - w_ty // 2)
+            for dx in range(-(w_tx // 2), w_tx - w_tx // 2)
+            if not (skip_ty and skip_tx and abs(dy) <= skip_ty // 2
+                    and abs(dx) <= skip_tx // 2)]
+    return torch.tensor(offs, dtype=torch.int64, device=device)
+
+
 def _emit_sorted_keys(packed: common.PackedSurfels, height: int,
                       width: int, tile_h: int, tile_w: int,
                       cap_ty: int, cap_tx: int, two_tier: bool = True):
@@ -181,15 +198,10 @@ def _emit_sorted_keys(packed: common.PackedSurfels, height: int,
         """Emit (w_ty x w_tx) window offsets minus the inner skip window,
         all offsets in one broadcast [offsets, surfels] block."""
         cx, cy, rx, ry, alive, tcx, tcy, rank, idv = args
-        offs = [(dy, dx)
-                for dy in range(-(w_ty // 2), w_ty - w_ty // 2)
-                for dx in range(-(w_tx // 2), w_tx - w_tx // 2)
-                if not (skip_ty and skip_tx and abs(dy) <= skip_ty // 2
-                        and abs(dx) <= skip_tx // 2)]
-        off = torch.tensor(offs, dtype=torch.int64, device=dev)
+        off = _window_offsets(w_ty, w_tx, skip_ty, skip_tx, dev)
         keys.append(window_keys(off[:, 0:1], off[:, 1:2], cx, cy, rx, ry,
                                 alive, tcx, tcy, rank).reshape(-1))
-        ids.append(idv.expand(len(offs), -1).reshape(-1))
+        ids.append(idv.expand(off.shape[0], -1).reshape(-1))
 
     def gather_args(bidx, needs):
         return (cx[bidx], cy[bidx], rx[bidx], ry[bidx],

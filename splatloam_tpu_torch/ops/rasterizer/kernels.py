@@ -17,7 +17,11 @@ Each wrapper takes the plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel (built at first use from
 ``splatloam_tpu_torch/csrc/*.cu`` with nvcc into ``build/splatloam_tpu_torch``
 and loaded with ctypes) or raises.  ``KERNELS[name].launches`` counts the
-kernel's launches, and nothing else.  Inside ``debug.checked`` each
+kernel's launches, and nothing else: a launch issued while a CUDA graph
+is captured (``recording``) counts into that capture's record instead,
+and each replay of the graph adds the record (``add_launches``), so the
+count holds every launch that runs, issued directly or by a replay.  No
+kernel is built during a capture.  Inside ``debug.checked`` each
 wrapper first checks its id lists against the rows they index (one
 reduction and one read), on either device.
 
@@ -50,6 +54,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
+from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -85,6 +91,10 @@ class Kernel:
 
     def fn(self):
         if self._fn is None:
+            if _RECORDS:
+                raise RuntimeError(
+                    f"{self.name} is not built and a CUDA graph is being "
+                    "captured: run the body once uncaptured first")
             build_all()
         return self._fn
 
@@ -131,9 +141,35 @@ KERNELS = {
 }
 
 
+# the launch records of the captures in progress (innermost last); a
+# capture's launches run only when its graph is replayed.  Process-wide,
+# not per thread: autograd's device thread launches the backward's
+# kernels while the capturing thread waits for it
+_RECORDS: list[Counter] = []
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+@contextmanager
+def recording():
+    """Count the launches issued inside into the yielded Counter instead
+    of ``KERNELS[name].launches`` (a graph capture records them; nothing
+    runs)."""
+    rec = Counter()
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def add_launches(counts) -> None:
+    """Add a replayed graph's recorded launches to the kernels' counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
 
 
 def _nvcc() -> str:
@@ -221,7 +257,10 @@ def _launch(name: str, *args) -> None:
     err = k.fn()(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    k.launches += 1
+    if _RECORDS:
+        _RECORDS[-1][name] += 1
+    else:
+        k.launches += 1
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -6,11 +6,17 @@ Counterpart of splatloam_tpu/slam/mapper.py:
     quantile; weighted sampling without replacement by Gumbel-top-k;
     back-projection; KNN scale init; normal-aligned rotations; writes
     into free surfel slots.
-  * optimize: a Python loop over rebin blocks of Adam iterations, each
-    block on one keyframe drawn from the geometric replay distribution (or
+  * optimize: a loop over rebin blocks of Adam iterations, each block on
+    one keyframe drawn from the geometric replay distribution (or
     ``mapping.views_per_iteration`` keyframes drawn with replacement,
     rendered in one batched pass and their losses averaged), with the
-    paper's losses (Eq 15-17) and EMA early stopping.
+    paper's losses (Eq 15-17) and EMA early stopping.  On CUDA each block
+    is a captured CUDA graph (graphs.CapturedProgram over StaticBlock's
+    buffers), the counterpart of the JAX package's jitted
+    ``while_loop``: the host replays one graph per block and reads the
+    stall count between blocks.  On the CPU, under the debug checks, and
+    where a caller asks (``optimize(capture=False)``), the blocks run
+    uncaptured through ``run_block_loop``.
   * prune: mask-clear by opacity/scale thresholds.
 
 With ``parallel.data * parallel.model`` > 1 the three steps run through
@@ -28,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import debug, graphs
 from ..config import Configuration
 from ..device import resolve_device
 from ..geometry import se3, spherical
@@ -73,6 +80,30 @@ def sample_geometric_probs(n: int, last_kf_prob: float | None,
     return out
 
 
+def take(x: torch.Tensor, idx) -> torch.Tensor:
+    """``x[idx]`` along the leading axis for a keyframe index ``idx`` (an
+    int, or a [] or [B] integer tensor) without reading a tensor index on
+    the host, as indexing with a 0-d tensor does."""
+    if not torch.is_tensor(idx):
+        return x[idx]
+    return x.index_select(0, idx.reshape(-1)).reshape(*idx.shape,
+                                                      *x.shape[1:])
+
+
+def run_block(surfels, adam, kf_idx, tiles, ema, best, stalled, *,
+              rebin: int, es_threshold: float, one_iter):
+    """One rebin block: ``rebin`` iterations of ``one_iter`` on frozen
+    tiles with the loss EMA, then the block's early-stopping update.
+    Returns (surfels, adam, ema, best, stalled)."""
+    for _ in range(rebin):
+        surfels, adam, loss = one_iter(surfels, adam, kf_idx, tiles)
+        ema = torch.where(torch.isnan(ema), loss, 0.1 * loss + 0.9 * ema)
+    improved = ema < best * (1.0 - es_threshold)
+    best = torch.minimum(best, ema)
+    stalled = torch.where(improved, 0, stalled + 1)
+    return surfels, adam, ema, best, stalled
+
+
 def run_block_loop(surfels, adam, kf_indices, *, num_iters: int, rebin: int,
                    early: bool, patience_blocks: int, es_threshold: float,
                    make_tiles, one_iter, reshard=None, stall_from_root=None):
@@ -110,13 +141,9 @@ def run_block_loop(surfels, adam, kf_indices, *, num_iters: int, rebin: int,
         if reshard is not None:
             surfels, adam = reshard(surfels, adam, kf_idx)
         tiles = make_tiles(surfels, kf_idx)
-        for _ in range(rebin):
-            surfels, adam, loss = one_iter(surfels, adam, kf_idx, tiles)
-            ema = torch.where(torch.isnan(ema), loss,
-                              0.1 * loss + 0.9 * ema)
-        improved = ema < best * (1.0 - es_threshold)
-        best = torch.minimum(best, ema)
-        stalled = torch.where(improved, 0, stalled + 1)
+        surfels, adam, ema, best, stalled = run_block(
+            surfels, adam, kf_idx, tiles, ema, best, stalled, rebin=rebin,
+            es_threshold=es_threshold, one_iter=one_iter)
         b += 1
     return surfels, adam, ema, b * rebin
 
@@ -223,8 +250,127 @@ def prune_core(surfels: S.Surfels, *, mc):
     return S.prune_surfels(surfels, prune), torch.sum(prune)
 
 
+def _tensors(tree) -> list:
+    """The tensors of a tree of named tuples, in order (None skipped)."""
+    if tree is None:
+        return []
+    if torch.is_tensor(tree):
+        return [tree]
+    return [t for x in tree for t in _tensors(x)]
+
+
+def _clone_tree(tree):
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return tree.clone()
+    return type(tree)(*(_clone_tree(x) for x in tree))
+
+
+class StaticBlock:
+    """One rebin block on fixed buffers: the body a captured graph holds.
+
+    The buffers hold the pool (its four parameter tensors and ``active``),
+    Adam's moments and step, the keyframe stack, the block's keyframe
+    index, the loss EMA, its best value and the stalled-block count, and,
+    where the rebin reads values back to the host (the programs'
+    ``rebin_outside``), the tile lists and plan the host rebins into once
+    per block.  ``body``
+    runs one block (``run_block``, after the rebin when it is inside) and
+    writes the pool, Adam's state and the early-stopping state back into
+    the same buffers, so the next block runs on them with no copy.
+    """
+
+    def __init__(self, progs: "MapperPrograms", surfels: S.Surfels,
+                 adam: S.AdamState, kf: KeyframeBatch, kf_idx: torch.Tensor):
+        def c(t):
+            return t.detach().clone()
+
+        self.progs = progs
+        self.params = S.SurfelParams(*map(c, surfels.params))
+        self.active = c(surfels.active)
+        self.mu = S.SurfelParams(*map(c, adam.mu))
+        self.nu = S.SurfelParams(*map(c, adam.nu))
+        self.step = c(adam.step)
+        self.kf = KeyframeBatch(K=c(kf.K), T_cw=c(kf.T_cw), depth=c(kf.depth),
+                                valid=c(kf.valid), probs=kf.probs)
+        self.kf_idx = c(kf_idx)
+        dev = self.active.device
+        self.ema = torch.full((), float("nan"), device=dev)
+        self.best = torch.full((), float("inf"), device=dev)
+        self.stalled = torch.zeros((), dtype=torch.int32, device=dev)
+        self.tiles = None
+
+    def _state(self) -> tuple:
+        return (*self.params, *self.mu, *self.nu, self.step, self.ema,
+                self.best, self.stalled)
+
+    def tensors(self) -> list:
+        """Every buffer, the tile lists and plan included once set."""
+        return [*self._state(), self.active, self.kf.K, self.kf.T_cw,
+                self.kf.depth, self.kf.valid, self.kf_idx,
+                *_tensors(self.tiles)]
+
+    def load(self, surfels: S.Surfels, adam: S.AdamState,
+             kf: KeyframeBatch) -> None:
+        """An update's start: its pool, Adam state and keyframes, and a
+        fresh early-stopping state."""
+        for dst, src in zip(
+                (*self.params, self.active, *self.mu, *self.nu, self.step,
+                 self.kf.K, self.kf.T_cw, self.kf.depth, self.kf.valid),
+                (*surfels.params, surfels.active, *adam.mu, *adam.nu,
+                 adam.step, kf.K, kf.T_cw, kf.depth, kf.valid)):
+            dst.copy_(src)
+        self.ema.fill_(float("nan"))
+        self.best.fill_(float("inf"))
+        self.stalled.zero_()
+
+    def surfels(self) -> S.Surfels:
+        return S.Surfels(self.params, self.active)
+
+    def start_block(self, kf_idx: torch.Tensor) -> None:
+        """The block's keyframe index, and its tiles when the rebin runs
+        outside the graph."""
+        self.kf_idx.copy_(kf_idx)
+        if not self.progs.rebin_outside:
+            return
+        tiles = self.progs.make_tiles(self.surfels(), self.kf, self.kf_idx)
+        if self.tiles is None:
+            self.tiles = _clone_tree(tiles)
+        else:
+            for dst, src in zip(_tensors(self.tiles), _tensors(tiles)):
+                dst.copy_(src)
+
+    def body(self) -> None:
+        progs = self.progs
+        surf = self.surfels()
+        adam = S.AdamState(self.mu, self.nu, self.step)
+        tiles = (self.tiles if progs.rebin_outside
+                 else progs.make_tiles(surf, self.kf, self.kf_idx))
+        surf, adam, ema, best, stalled = run_block(
+            surf, adam, self.kf_idx, tiles, self.ema, self.best,
+            self.stalled, rebin=progs.rebin, es_threshold=progs.es_threshold,
+            one_iter=lambda s, a, i, t: progs.one_iter(s, a, self.kf, i, t))
+        for dst, src in zip(self._state(),
+                            (*surf.params, *adam.mu, *adam.nu, adam.step,
+                             ema, best, stalled)):
+            dst.copy_(src)
+
+    def results(self, active: torch.Tensor):
+        """(surfels, adam, ema) as copies that outlive the buffers."""
+        def c(t):
+            return t.clone()
+        return (S.Surfels(S.SurfelParams(*map(c, self.params)), active),
+                S.AdamState(mu=S.SurfelParams(*map(c, self.mu)),
+                            nu=S.SurfelParams(*map(c, self.nu)),
+                            step=c(self.step)),
+                c(self.ema))
+
+
 class MapperPrograms:
-    """Mapping steps specialized to (H, W, capacity)."""
+    """Mapping steps specialized to (H, W, capacity).  On CUDA the optimize
+    blocks run as captured graphs, one per signature (``signature``),
+    kept until ``release_graphs``."""
 
     def __init__(self, cfg: Configuration, height: int, width: int,
                  capacity: int):
@@ -256,6 +402,20 @@ class MapperPrograms:
                                  lr_scale=oc.scaling_lr,
                                  lr_quat=oc.rotation_lr,
                                  lr_opacity=oc.opacity_lr)
+        # amortized rebinning: a keyframe view + its tile lists are held
+        # fixed for rebin_every consecutive Adam steps (exact when 1; the
+        # binning radius carries a pixel margin to absorb parameter drift)
+        self.rebin = max(1, int(cc.rebin_every))
+        self.early = bool(mc.early_stop_enable)
+        self.patience_blocks = max(1, int((mc.early_stop_patience or 100)
+                                          // self.rebin))
+        self.es_threshold = float(mc.early_stop_threshold or 0.01)
+        # the "plan" rebin assigns through a boolean mask, which reads
+        # back to the host: it runs outside the graph, once per block
+        self.rebin_outside = cc.scatter == "plan"
+        # signature -> (StaticBlock, CapturedProgram)
+        self._graphs: dict[tuple, tuple] = {}
+        self._said_uncaptured = False
 
     def densify(self, surfels: S.Surfels, adam: S.AdamState,
                 camera: Camera, gumbel: torch.Tensor, *, initialize: bool):
@@ -297,9 +457,10 @@ class MapperPrograms:
         scaling = torch.exp(params.log_scale)
         opacity = torch.sigmoid(params.logit_opacity) * active
         pkg = render(params.xyz, scaling, params.quat, opacity,
-                     kf.T_cw[kf_idx], kf.K[kf_idx], self.params,
+                     take(kf.T_cw, kf_idx), take(kf.K, kf_idx), self.params,
                      self.cfg.opt.depth_ratio, tiles=tiles)
-        return (self._image_losses(pkg, kf.depth[kf_idx], kf.valid[kf_idx])
+        return (self._image_losses(pkg, take(kf.depth, kf_idx),
+                                   take(kf.valid, kf_idx))
                 + self._scale_penalty(scaling, active))
 
     def _loss_multi(self, params: S.SurfelParams, active, kf: KeyframeBatch,
@@ -309,10 +470,11 @@ class MapperPrograms:
         scaling = torch.exp(params.log_scale)
         opacity = torch.sigmoid(params.logit_opacity) * active
         pkg = render_batch(params.xyz, scaling, params.quat, opacity,
-                           kf.T_cw[kf_idx], kf.K[kf_idx], self.params,
-                           self.cfg.opt.depth_ratio, tiles=tiles)
-        return (torch.mean(self._image_losses(pkg, kf.depth[kf_idx],
-                                              kf.valid[kf_idx]))
+                           take(kf.T_cw, kf_idx), take(kf.K, kf_idx),
+                           self.params, self.cfg.opt.depth_ratio,
+                           tiles=tiles)
+        return (torch.mean(self._image_losses(pkg, take(kf.depth, kf_idx),
+                                              take(kf.valid, kf_idx)))
                 + self._scale_penalty(scaling, active))
 
     def one_iter(self, surf: S.Surfels, st: S.AdamState, kf: KeyframeBatch,
@@ -326,38 +488,112 @@ class MapperPrograms:
         surf, st = S.adam_step(surf, st, grads, self.hyper)
         return surf, st, loss.detach()
 
+    def make_tiles(self, surf: S.Surfels, kf: KeyframeBatch, kf_idx):
+        """The rebin: frozen tile lists (and the reduction's plan) of the
+        keyframe view(s) ``kf_idx``."""
+        scaling = torch.exp(surf.params.log_scale)
+        opacity = torch.sigmoid(surf.params.logit_opacity) * surf.active
+        prep = prepare_tiles if self.views == 1 else prepare_tiles_batch
+        return prep(surf.params.xyz, scaling, surf.params.quat, opacity,
+                    take(kf.T_cw, kf_idx), take(kf.K, kf_idx), self.params,
+                    margin_px=self.cfg.compute.bin_margin_px)
+
     def optimize(self, surfels: S.Surfels, adam: S.AdamState,
-                 kf: KeyframeBatch, kf_indices: torch.Tensor):
-        mc = self.cfg.mapping
-        # amortized rebinning: a keyframe view + its tile lists are held
-        # fixed for rebin_every consecutive Adam steps (exact when 1; the
-        # binning radius carries a pixel margin to absorb parameter drift)
-        rebin = max(1, int(self.cfg.compute.rebin_every))
+                 kf: KeyframeBatch, kf_indices: torch.Tensor,
+                 capture: bool | None = None):
+        """The optimize loop -> (surfels, adam, loss EMA, iterations run).
 
-        def make_tiles(surf, kf_idx):
-            scaling = torch.exp(surf.params.log_scale)
-            opacity = torch.sigmoid(surf.params.logit_opacity) * surf.active
-            prep = prepare_tiles if self.views == 1 else prepare_tiles_batch
-            return prep(surf.params.xyz, scaling, surf.params.quat, opacity,
-                        kf.T_cw[kf_idx], kf.K[kf_idx], self.params,
-                        margin_px=self.cfg.compute.bin_margin_px)
-
+        ``capture`` None: captured graphs on CUDA (``optimize_static``),
+        the uncaptured ``run_block_loop`` on the CPU and, on CUDA too,
+        under the debug checks, which read values back to the host (as
+        ``jax_debug_nans`` runs a program without compiling it); True or
+        False ask for one of the two."""
+        if capture is None:
+            capture = self.captures_on(surfels.active.device)
+        if capture:
+            return self.optimize_static(surfels, adam, kf, kf_indices,
+                                        capture=True)
         return run_block_loop(
             surfels, adam, kf_indices,
-            num_iters=self.n_iters(), rebin=rebin,
-            early=bool(mc.early_stop_enable),
-            patience_blocks=max(1, int((mc.early_stop_patience or 100)
-                                       // rebin)),
-            es_threshold=float(mc.early_stop_threshold or 0.01),
-            make_tiles=make_tiles,
+            num_iters=self.n_iters(), rebin=self.rebin, early=self.early,
+            patience_blocks=self.patience_blocks,
+            es_threshold=self.es_threshold,
+            make_tiles=lambda s, i: self.make_tiles(s, kf, i),
             one_iter=lambda s, a, i, t: self.one_iter(s, a, kf, i, t))
+
+    def captures_on(self, device: torch.device) -> bool:
+        """Whether ``optimize`` captures by default on ``device``: on
+        CUDA, unless the debug checks are on (logged once)."""
+        if device.type != "cuda":
+            return False
+        if debug.checks_active():
+            if not self._said_uncaptured:
+                logger.info("debug checks are on: the optimize blocks run "
+                            "uncaptured, with the kernels")
+                self._said_uncaptured = True
+            return False
+        return True
+
+    def signature(self, kf_cap: int) -> tuple:
+        """What one block graph is specialized to: (H, W, capacity,
+        views, scatter, with_median, rebin, kf_cap)."""
+        return (self.height, self.width, self.capacity, self.views,
+                self.params.scatter, self.params.with_median, self.rebin,
+                kf_cap)
+
+    def optimize_static(self, surfels: S.Surfels, adam: S.AdamState,
+                        kf: KeyframeBatch, kf_indices: torch.Tensor, *,
+                        capture: bool):
+        """``run_block_loop`` on a StaticBlock's buffers, the same blocks
+        in the same order.  With ``capture`` (CUDA), each block is the
+        signature's captured graph: the first update at a signature runs
+        its block 0 uncaptured (the warm-up) and captures it after, and
+        every later block, of this update and of later ones at the
+        signature, replays.  Without, each block runs ``StaticBlock.body``
+        directly."""
+        sig = self.signature(kf.K.shape[0])
+        static, prog = self._graphs.get(sig, (None, None))
+        if static is None:
+            if capture:
+                # the keyframe stack only grows within a submap: a graph
+                # at another stack size is not replayed again
+                self.release_graphs()
+            static = StaticBlock(self, surfels, adam, kf, kf_indices[0])
+        else:
+            static.load(surfels, adam, kf)
+        b = 0
+        while b < self.n_blocks():
+            if self.early and int(static.stalled) >= self.patience_blocks:
+                break
+            static.start_block(kf_indices[b])
+            if not capture:
+                static.body()
+            else:
+                if prog is None:
+                    prog = graphs.CapturedProgram(
+                        f"mapper block {sig}", static.body,
+                        static.tensors())
+                    self._graphs[sig] = (static, prog)
+                prog.run()
+            b += 1
+        return (*static.results(surfels.active), b * self.rebin)
+
+    def graph_stats(self) -> dict:
+        """{signature: the captured program's captures, replays and
+        memory}."""
+        return {sig: prog.stats() for sig, (_, prog) in self._graphs.items()}
+
+    def release_graphs(self) -> None:
+        """Drop the block graphs, their buffers and their pools."""
+        for _, prog in self._graphs.values():
+            prog.release()
+        self._graphs.clear()
 
     def n_iters(self) -> int:
         return self.cfg.mapping.num_iterations + 1
 
     def n_blocks(self) -> int:
-        rebin = max(1, int(self.cfg.compute.rebin_every))
-        return (self.n_iters() + rebin - 1) // rebin
+        return (self.n_iters() + self.rebin - 1) // self.rebin
 
     def prune(self, surfels: S.Surfels):
         return prune_core(surfels, mc=self.cfg.mapping)
@@ -405,10 +641,28 @@ class Mapper:
         return self.mesh is None or self.mesh.rank == 0
 
     def register_model(self, model: LocalModel) -> None:
+        """A new submap (or a restored one): the block graphs of the last
+        one are freed."""
         if model.device != self.device:
             raise ValueError(f"model on {model.device}, mapper on "
                              f"{self.device}")
         self.model = model
+        self._release_graphs_below(None)
+
+    def _release_graphs_below(self, capacity: int | None) -> None:
+        """Free the block graphs of the programs whose capacity the pool
+        has grown past (of every program when ``capacity`` is None)."""
+        for (_, _, cap), progs in self._programs.items():
+            if capacity is None or cap < capacity:
+                progs.release_graphs()
+
+    def graph_stats(self) -> dict:
+        """{block graph signature: captures, replays, pool and static
+        buffer bytes} over the programs still held."""
+        out = {}
+        for progs in self._programs.values():
+            out.update(progs.graph_stats())
+        return out
 
     def programs_for(self, height: int, width: int,
                      capacity: int) -> MapperPrograms:
@@ -517,6 +771,7 @@ class Mapper:
         model.ensure_free_slots(progs.max_new)
         if model.capacity != progs.capacity:
             progs = self.programs_for(h, w, model.capacity)
+            self._release_graphs_below(model.capacity)
         sharded = (None if self.mesh is None
                    else self._sharded_programs(progs))
         surf, adam = model.surfels, model.adam

@@ -15,15 +15,20 @@ The GN loop reads nothing back to the host: where the JAX package exits
 its ``while_loop`` once |dx| <= convergence_tol, this loop runs all
 ``num_iterations`` and carries an ``active`` flag on the device, which
 freezes T after the step that met the tolerance: the same answer, with
-no synchronization per iteration.  The pose algebra of the caller stays
-on the host in float64; ``align`` uploads one float32 4x4 and reads T and
-the fitness back once.
+no synchronization per iteration.  On CUDA ``AlignerGN.align`` runs the
+loop as a captured CUDA graph (graphs.CapturedProgram, one per image size
+and solver setting), the counterpart of the JAX package's jitted
+``while_loop``: it copies the guess, the source and the target into the
+graph's static inputs and replays it.  The pose algebra of the caller
+stays on the host in float64; ``align`` uploads one float32 4x4 and reads
+T and the fitness back once.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import AlignerParams, Configuration, TrackingMethod
 from ..device import resolve_device
 from ..geometry import se3, spherical
@@ -177,6 +182,8 @@ class AlignerGN:
         self.ap = ap
         self._target = None
         self._source = None
+        # (H, W, solver settings) -> the captured GN loop (CUDA only)
+        self._graphs: dict[tuple, graphs.CapturedProgram] = {}
 
     def set_model(self, model: LocalModel) -> None:
         self.model = model
@@ -211,25 +218,51 @@ class AlignerGN:
         cam = frame.camera
         self._source = _prepare_source(cam.depth, cam.K, cam.valid)
 
+    def solver_settings(self) -> dict:
+        """gauss_newton_align's keyword arguments from the config."""
+        ap = self.ap
+        return dict(num_iterations=int(ap.num_iterations),
+                    huber_delta=float(ap.huber_delta),
+                    max_corr_dist=float(ap.max_correspondence_dist),
+                    inlier_threshold=float(ap.inlier_threshold),
+                    damping=float(ap.damping),
+                    corr_factor_init=float(ap.corr_factor_init),
+                    corr_decay_iters=int(ap.corr_decay_iters),
+                    convergence_tol=float(ap.convergence_tol),
+                    lambda_range=float(ap.lambda_range or 0.0))
+
+    def _program(self, inputs, h: int, w: int) -> graphs.CapturedProgram:
+        """The captured GN loop for this image size and these settings;
+        its static inputs are (T_init, source points and validity, target
+        depth, points, normals and validity, K)."""
+        kw = self.solver_settings()
+        sig = (h, w, *kw.values())
+        if sig not in self._graphs:
+            static = [t.clone() for t in inputs]
+            self._graphs[sig] = graphs.CapturedProgram(
+                f"gauss_newton_align {sig}",
+                lambda: gauss_newton_align(*static, h, w, **kw), static)
+        return self._graphs[sig]
+
+    def graph_stats(self) -> dict:
+        """{signature: the captured GN loop's captures, replays and
+        memory}."""
+        return {sig: prog.stats() for sig, prog in self._graphs.items()}
+
     def align(self, iguess: np.ndarray) -> np.ndarray:
         """float64 [4, 4] initial guess -> float64 [4, 4] keyframe_T_frame;
-        one upload of the guess and one read of (T, fitness)."""
+        one upload of the guess and one read of (T, fitness).  On CUDA the
+        solve is the captured graph's replay."""
         assert self._target is not None and self._source is not None
         depth, pts, normals, valid, K, h, w = self._target
-        src_pts, src_valid = self._source
-        T, fitness = gauss_newton_align(
-            torch.as_tensor(np.asarray(iguess, np.float32),
-                            device=self.device),
-            src_pts, src_valid, depth, pts, normals, valid, K, h, w,
-            num_iterations=int(self.ap.num_iterations),
-            huber_delta=float(self.ap.huber_delta),
-            max_corr_dist=float(self.ap.max_correspondence_dist),
-            inlier_threshold=float(self.ap.inlier_threshold),
-            damping=float(self.ap.damping),
-            corr_factor_init=float(self.ap.corr_factor_init),
-            corr_decay_iters=int(self.ap.corr_decay_iters),
-            convergence_tol=float(self.ap.convergence_tol),
-            lambda_range=float(self.ap.lambda_range or 0.0))
+        inputs = (torch.as_tensor(np.asarray(iguess, np.float32),
+                                  device=self.device),
+                  *self._source, depth, pts, normals, valid, K)
+        if self.device.type == "cuda":
+            T, fitness = self._program(inputs, h, w)(*inputs)
+        else:
+            T, fitness = gauss_newton_align(*inputs, h, w,
+                                            **self.solver_settings())
         out = torch.cat([T.reshape(-1), fitness.reshape(1)]).cpu().numpy()
         self.reg_fitness = float(out[16])
         return out[:16].reshape(4, 4).astype(np.float64)
