@@ -191,7 +191,6 @@ def cmd_slam(args, extra: list[str]) -> None:
         except Exception:
             iterator = data_loader
     n = args.max_frames
-    prof = get_profiler()
     fault_at = os.environ.get("SPLATLOAM_FAULT_AT_FRAME")
     for i, (cloud, timestamp, pose) in enumerate(iterator):
         if i < skip:
@@ -211,12 +210,10 @@ def cmd_slam(args, extra: list[str]) -> None:
                 raise RuntimeError(
                     f"injected fault at frame {i} "
                     "(SPLATLOAM_FAULT_AT_FRAME)")
-        with prof.phase("preprocess"):
-            frame = preprocessor(cloud, timestamp, pose)
-        with prof.phase("process"):
-            slam_module.process(frame)
+        # each call records its phase, "preprocess" and "process"
+        slam_module.process(preprocessor(cloud, timestamp, pose))
 
-    logger.info("phase profile:\n" + prof.report())
+    logger.info("phase profile:\n" + get_profiler().report())
     results_dir = slam_module.save_results()
     if joined:
         import torch.distributed as dist

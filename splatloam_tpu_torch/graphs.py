@@ -22,6 +22,12 @@ their loops uncaptured.
 Launch accounting: the kernels' launches issued during the capture go
 into the program's record (``kernels.recording``), and every replay adds
 the record to ``kernels.KERNELS[name].launches``.
+
+Tracing: the owner names the program's spans (``span``): the warm-up
+and the capture open ``<span>.capture``, each ``graph.replay()`` call
+``<span>.replay``; the profiler's counters ``graph.captures`` and
+``graph.replays`` count them beside the program's own ``captures`` and
+``replays``, and outlive its release.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Callable, Sequence
 import torch
 
 from .ops.rasterizer import kernels
+from .profiling import get_profiler
 
 
 class CaptureError(RuntimeError):
@@ -74,12 +81,13 @@ class CapturedProgram:
     CUDA graph and replayed.  ``static`` are the tensors the program owns
     as its inputs (and, where the body writes them back, its state);
     ``outputs`` what the captured body returned, rewritten by each
-    replay."""
+    replay; ``span`` the prefix of its spans' names (its owner's phase)."""
 
     def __init__(self, name: str, body: Callable,
-                 static: Sequence[torch.Tensor]):
+                 static: Sequence[torch.Tensor], *, span: str):
         _check_device(static)
         self.name = name
+        self.span = span
         self.body = body
         self.static = tuple(static)
         self.graph = None
@@ -113,9 +121,10 @@ class CapturedProgram:
         (its result is returned) and capture it."""
         if self.graph is not None:
             return self.replay()
-        with _side_stream():
-            out = self.body()
-        self.capture()
+        with get_profiler().phase(f"{self.span}.capture"):
+            with _side_stream():
+                out = self.body()
+            self.capture()
         return out
 
     def capture(self) -> None:
@@ -127,10 +136,14 @@ class CapturedProgram:
         self.graph, self.outputs, self.launches = graph, outputs, rec
         self.pool_bytes = pool_bytes
         self.captures += 1
+        get_profiler().count("graph.captures")
 
     def replay(self):
-        self.graph.replay()
+        prof = get_profiler()
+        with prof.phase(f"{self.span}.replay"):
+            self.graph.replay()
         self.replays += 1
+        prof.count("graph.replays")
         kernels.add_launches(self.launches)
         return self.outputs
 

@@ -18,6 +18,7 @@ from .geometry import spherical
 from .model.camera import make_camera
 from .model.frame import Frame
 from .ops import projection
+from .profiling import get_profiler
 
 
 def _preprocess_device(pts: torch.Tensor, pmask: torch.Tensor, height: int,
@@ -58,31 +59,41 @@ class Preprocessor:
 
     def __call__(self, cloud: np.ndarray, timestamp: float,
                  gt_pose: np.ndarray | None = None) -> Frame:
-        """cloud: [N, 3] float32; gt_pose: optional [4, 4]."""
+        """cloud: [N, 3] float32; gt_pose: optional [4, 4].  Starts the
+        profiler's next frame."""
+        prof = get_profiler()
+        prof.next_frame()
         pcfg = self.cfg.preprocessing
-        cloud = np.asarray(cloud, np.float32)
-        cloud = cloud[np.isfinite(cloud).all(axis=1)]
-        n = len(cloud)
-        padded = _bucket_size(n)
         host_normals = pcfg.enable_normal_estimation or \
             pcfg.enable_ground_segmentation
-        # points, and the host's normals beside them, in one upload
-        buf = np.zeros((padded, 6 if host_normals else 3), np.float32)
-        buf[:n, :3] = cloud
-        if host_normals:
-            mask = np.arange(padded) < n
-            buf[:, 3:] = self.compute_normals(buf[:, :3], mask)
-        dev_buf = torch.from_numpy(buf).to(self.device)
-        pmask = torch.arange(padded, device=self.device) < n
-        K, depth, normal_img, valid = _preprocess_device(
-            dev_buf[:, :3], pmask, pcfg.image_height, pcfg.image_width,
-            float(pcfg.depth_min), float(pcfg.depth_max),
-            normals=dev_buf[:, 3:] if host_normals else None)
-        camera = make_camera(K=K, depth=depth, normal=normal_img,
-                             valid=valid)
-        frame_pose = np.eye(4) if gt_pose is None else np.asarray(gt_pose)
-        return Frame(camera=camera, timestamp=timestamp,
-                     world_T_frame=frame_pose)
+        with prof.phase("preprocess"):
+            with prof.phase("preprocess.pack"):
+                cloud = np.asarray(cloud, np.float32)
+                cloud = cloud[np.isfinite(cloud).all(axis=1)]
+                n = len(cloud)
+                padded = _bucket_size(n)
+                # points, and the host's normals beside them, in one upload
+                buf = np.zeros((padded, 6 if host_normals else 3),
+                               np.float32)
+                buf[:n, :3] = cloud
+                if host_normals:
+                    mask = np.arange(padded) < n
+                    buf[:, 3:] = self.compute_normals(buf[:, :3], mask)
+            with prof.phase("preprocess.upload"):
+                dev_buf = torch.from_numpy(buf).to(self.device)
+            with prof.phase("preprocess.project"):
+                pmask = torch.arange(padded, device=self.device) < n
+                K, depth, normal_img, valid = _preprocess_device(
+                    dev_buf[:, :3], pmask, pcfg.image_height,
+                    pcfg.image_width, float(pcfg.depth_min),
+                    float(pcfg.depth_max),
+                    normals=dev_buf[:, 3:] if host_normals else None)
+                camera = make_camera(K=K, depth=depth, normal=normal_img,
+                                     valid=valid)
+            frame_pose = (np.eye(4) if gt_pose is None
+                          else np.asarray(gt_pose))
+            return Frame(camera=camera, timestamp=timestamp,
+                         world_T_frame=frame_pose)
 
     def compute_normals(self, cloud: np.ndarray,
                         mask: np.ndarray) -> np.ndarray:

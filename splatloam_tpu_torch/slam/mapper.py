@@ -419,15 +419,17 @@ class MapperPrograms:
 
     def densify(self, surfels: S.Surfels, adam: S.AdamState,
                 camera: Camera, gumbel: torch.Tensor, *, initialize: bool):
+        prof = get_profiler()
         pkg = None
         if not initialize:
-            with torch.no_grad():
+            with prof.phase("map.densify.render"), torch.no_grad():
                 pkg = render(surfels.params.xyz, surfels.scaling,
                              surfels.rotation, surfels.opacity, camera.T_cw,
                              camera.K, self.params, self.cfg.opt.depth_ratio)
-        return densify_core(surfels, adam, camera, gumbel, pkg,
-                            mc=self.cfg.mapping, max_new=self.max_new,
-                            height=self.height, width=self.width)
+        with prof.phase("map.densify.core"):
+            return densify_core(surfels, adam, camera, gumbel, pkg,
+                                mc=self.cfg.mapping, max_new=self.max_new,
+                                height=self.height, width=self.width)
 
     def _image_losses(self, pkg, gt_depth, valid):
         """Depth L1 + Eq 16 + Eq 15 of each view, over the last two (H, W)
@@ -550,33 +552,41 @@ class MapperPrograms:
         its block 0 uncaptured (the warm-up) and captures it after, and
         every later block, of this update and of later ones at the
         signature, replays.  Without, each block runs ``StaticBlock.body``
-        directly."""
+        directly.  Each step is a span under ``map.optimize``: ``load``,
+        per block ``start_block`` (the stall check with early stopping)
+        and ``body``, ``capture`` or ``replay``, then ``results``."""
+        prof = get_profiler()
         sig = self.signature(kf.K.shape[0])
         static, prog = self._graphs.get(sig, (None, None))
-        if static is None:
-            if capture:
-                # the keyframe stack only grows within a submap: a graph
-                # at another stack size is not replayed again
-                self.release_graphs()
-            static = StaticBlock(self, surfels, adam, kf, kf_indices[0])
-        else:
-            static.load(surfels, adam, kf)
+        with prof.phase("map.optimize.load"):
+            if static is None:
+                if capture:
+                    # the keyframe stack only grows within a submap: a
+                    # graph at another stack size is not replayed again
+                    self.release_graphs()
+                static = StaticBlock(self, surfels, adam, kf, kf_indices[0])
+            else:
+                static.load(surfels, adam, kf)
         b = 0
         while b < self.n_blocks():
-            if self.early and int(static.stalled) >= self.patience_blocks:
-                break
-            static.start_block(kf_indices[b])
+            with prof.phase("map.optimize.start_block"):
+                if self.early and \
+                        int(static.stalled) >= self.patience_blocks:
+                    break
+                static.start_block(kf_indices[b])
             if not capture:
-                static.body()
+                with prof.phase("map.optimize.body"):
+                    static.body()
             else:
                 if prog is None:
                     prog = graphs.CapturedProgram(
                         f"mapper block {sig}", static.body,
-                        static.tensors())
+                        static.tensors(), span="map.optimize")
                     self._graphs[sig] = (static, prog)
                 prog.run()
             b += 1
-        return (*static.results(surfels.active), b * self.rebin)
+        with prof.phase("map.optimize.results"):
+            return (*static.results(surfels.active), b * self.rebin)
 
     def graph_stats(self) -> dict:
         """{signature: the captured program's captures, replays and
@@ -788,7 +798,9 @@ class Mapper:
             surf, adam, n_new, sampled = densify(
                 surf, adam, cam, self._gumbel(h * w),
                 initialize=initialize_model)
-            n_new = int(n_new)
+            with prof.phase("map.densify.read"):
+                n_new = int(n_new)
+        prof.count("map.densify.added", n_new)
         logger.info(f"Adding {n_new} new gaussians")
         self._last_densify_mask = sampled
         if self.cfg.logging.enable and self.writes:
@@ -801,15 +813,19 @@ class Mapper:
         with prof.phase("map.stack_kf"):
             kf = self._stack_keyframes(kf_cap)
         with prof.phase("map.optimize"):
-            kf_indices = self._draw_keyframes(kf.probs, progs.n_blocks())
+            with prof.phase("map.optimize.draw"):
+                kf_indices = self._draw_keyframes(kf.probs,
+                                                  progs.n_blocks())
             surf, adam, ema, n_iters = optimize(surf, adam, kf, kf_indices)
-            ema_value = float(ema)   # waits for the device
+            with prof.phase("map.optimize.drain"):
+                ema_value = float(ema)   # waits for the device
         logger.debug(f"optimize done after {n_iters} iters, "
                      f"loss_ema={ema_value:.4f}")
 
         with prof.phase("map.prune"):
             surf, n_pruned = prune(surf)
             n_pruned = int(n_pruned)
+        prof.count("map.prune.removed", n_pruned)
         if sharded is not None:
             from ..parallel.sharded import gather_model_state
             surf, adam = gather_model_state(self.mesh, surf, adam)

@@ -53,7 +53,6 @@ class SLAM:
         self.date_start = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         self.world_T_odom: list[np.ndarray] = []
         self.timestamps: list[float] = []
-        self.profiler = get_profiler()
         self._keyframes_since_ckpt = 0
 
     @property
@@ -90,74 +89,76 @@ class SLAM:
 
     def process(self, frame: Frame) -> None:
         """Per-frame protocol."""
-        dlog = self._dlog()
-        dlog.set_timestamp(frame.timestamp)
+        with get_profiler().phase("process"):
+            dlog = self._dlog()
+            dlog.set_timestamp(frame.timestamp)
 
-        if len(self.frames) == 0:
-            # the first frame anchors the map at its GT pose
-            frame.model_T_frame = frame.world_T_frame.copy()
-            self.initialize_new_local_model(frame)
-            self.frames.append(frame)
-            self.world_T_odom.append(self._current_odometry())
-            self.timestamps.append(frame.timestamp)
-            return
-
-        with self.profiler.phase("track"):
-            self.tracker.track(frame)
-
-        if self._agree_on_tracking(frame,
-                                   self.tracker.require_new_keyframe()):
-            logger.debug("New keyframe required")
-            if self.local_models[-1].require_new_model():
+            if len(self.frames) == 0:
+                # the first frame anchors the map at its GT pose
+                frame.model_T_frame = frame.world_T_frame.copy()
                 self.initialize_new_local_model(frame)
-            else:
-                self.insert_new_keyframe(frame)
-            self._maybe_checkpoint()
+                self.frames.append(frame)
+                self.world_T_odom.append(self._current_odometry())
+                self.timestamps.append(frame.timestamp)
+                return
 
-        self.frames.append(frame)
-        wTf = self._current_odometry()
-        self.world_T_odom.append(wTf)
-        self.timestamps.append(frame.timestamp)
-        logger.info(f"t={frame.timestamp} | pos={wTf[:3, -1]}")
-        self._log_frame(frame, dlog)
+            with get_profiler().phase("track"):
+                self.tracker.track(frame)
+
+            if self._agree_on_tracking(frame,
+                                       self.tracker.require_new_keyframe()):
+                logger.debug("New keyframe required")
+                if self.local_models[-1].require_new_model():
+                    self.initialize_new_local_model(frame)
+                else:
+                    self.insert_new_keyframe(frame)
+                self._maybe_checkpoint()
+
+            self.frames.append(frame)
+            wTf = self._current_odometry()
+            self.world_T_odom.append(wTf)
+            self.timestamps.append(frame.timestamp)
+            logger.info(f"t={frame.timestamp} | pos={wTf[:3, -1]}")
+            self._log_frame(frame, dlog)
 
     def _log_frame(self, frame: Frame, dlog) -> None:
         """Per-frame observability: transform tree, input cloud, rendered
         depth/normal/depth-L1 images."""
         if not self.cfg.logging.enable or not self.writes:
             return
-        lmodel = self.local_models[-1]
-        dlog.log_transform("world/model", lmodel.world_T_model)
-        dlog.log_transform("world/model/keyframe",
-                           lmodel.keyframes[-1].model_T_frame)
-        dlog.log_transform("world/model/keyframe/frame",
-                           self.tracker.keyframe_T_frame)
-        cam = frame.camera
-        gt_depth = cam.depth.cpu().numpy()
-        dlog.log_depth_image("frame/depth_in", gt_depth)
-        if not self.cfg.logging.log_renders:
-            return
-        from ..geometry import spherical
-        pts = spherical.depth_to_points(cam.depth, cam.K).cpu().numpy()
-        valid = cam.valid.cpu().numpy()
-        dlog.log_pointcloud("world/model/keyframe/frame",
-                            pts[valid].reshape(-1, 3))
-        pkg = self.mapper.render_frame(frame)
-        est_depth = pkg["surf_depth"].cpu().numpy()
-        depth_l1 = np.abs(est_depth - gt_depth)
-        depth_l1[~valid] = 0.0
-        est_normal = pkg["rend_normal"].cpu().numpy() * 0.5 + 0.5
-        dlog.log_image("frame/normals", est_normal)
-        dlog.log_depth_image("frame/depth", est_depth)
-        dlog.log_depth_image("frame/depth_l1", depth_l1)
+        with get_profiler().phase("log_frame"):
+            lmodel = self.local_models[-1]
+            dlog.log_transform("world/model", lmodel.world_T_model)
+            dlog.log_transform("world/model/keyframe",
+                               lmodel.keyframes[-1].model_T_frame)
+            dlog.log_transform("world/model/keyframe/frame",
+                               self.tracker.keyframe_T_frame)
+            cam = frame.camera
+            gt_depth = cam.depth.cpu().numpy()
+            dlog.log_depth_image("frame/depth_in", gt_depth)
+            if not self.cfg.logging.log_renders:
+                return
+            from ..geometry import spherical
+            pts = spherical.depth_to_points(cam.depth, cam.K).cpu().numpy()
+            valid = cam.valid.cpu().numpy()
+            dlog.log_pointcloud("world/model/keyframe/frame",
+                                pts[valid].reshape(-1, 3))
+            pkg = self.mapper.render_frame(frame)
+            est_depth = pkg["surf_depth"].cpu().numpy()
+            depth_l1 = np.abs(est_depth - gt_depth)
+            depth_l1[~valid] = 0.0
+            est_normal = pkg["rend_normal"].cpu().numpy() * 0.5 + 0.5
+            dlog.log_image("frame/normals", est_normal)
+            dlog.log_depth_image("frame/depth", est_depth)
+            dlog.log_depth_image("frame/depth_l1", depth_l1)
 
     def insert_new_keyframe(self, frame: Frame) -> None:
         logger.info("Inserting new keyframe")
         self.local_models[-1].insert_keyframe(frame)
-        with self.profiler.phase("map_update"):
+        with get_profiler().phase("map_update"):
             self.mapper.update_model(frame)
         self._debug_check_state()
-        with self.profiler.phase("register_keyframe"):
+        with get_profiler().phase("register_keyframe"):
             self.tracker.register_keyframe(frame)
         self._dlog().log_model(
             "world/model", self.local_models[-1].surfels)
@@ -175,7 +176,7 @@ class SLAM:
         lmodel.insert_keyframe(frame)
         self.local_models.append(lmodel)
         self.mapper.register_model(lmodel)
-        with self.profiler.phase("map_update"):
+        with get_profiler().phase("map_update"):
             self.mapper.update_model(frame, initialize_model=True)
         self._debug_check_state()
         self.tracker.register_model(lmodel)
@@ -204,7 +205,7 @@ class SLAM:
         if self._keyframes_since_ckpt >= every:
             if self.writes:
                 from ..checkpoint import save_checkpoint
-                with self.profiler.phase("checkpoint"):
+                with get_profiler().phase("checkpoint"):
                     save_checkpoint(ckpt_dir, self)
             self._keyframes_since_ckpt = 0
 

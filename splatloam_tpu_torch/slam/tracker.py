@@ -241,7 +241,8 @@ class AlignerGN:
             static = [t.clone() for t in inputs]
             self._graphs[sig] = graphs.CapturedProgram(
                 f"gauss_newton_align {sig}",
-                lambda: gauss_newton_align(*static, h, w, **kw), static)
+                lambda: gauss_newton_align(*static, h, w, **kw), static,
+                span="track.align")
         return self._graphs[sig]
 
     def graph_stats(self) -> dict:

@@ -541,7 +541,8 @@ def test_replay_adds_the_recorded_launches(monkeypatch, stub_kernels):
         kernels._launch("K3_ranksum")
         return "out"
 
-    prog = graphs.CapturedProgram("stub", body, [torch.zeros(3)])
+    prog = graphs.CapturedProgram("stub", body, [torch.zeros(3)],
+                                  span="stub")
     counts = kernels.KERNELS
     assert prog.run() == "out"           # warm-up: direct launches count
     assert (counts["K1_fwd"].launches, counts["K3_ranksum"].launches) == \
@@ -567,7 +568,8 @@ def test_failed_capture_raises(monkeypatch):
     monkeypatch.setattr(graphs, "_record", record)
     runs = []
     prog = graphs.CapturedProgram("mapper block (16, 256)",
-                                  lambda: runs.append(1), [torch.zeros(1)])
+                                  lambda: runs.append(1), [torch.zeros(1)],
+                                  span="map.optimize")
     for _ in range(2):
         with pytest.raises(graphs.CaptureError,
                            match=r"capturing mapper block \(16, 256\) "
@@ -580,7 +582,8 @@ def test_failed_capture_raises(monkeypatch):
 
 def test_captured_program_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="uncaptured"):
-        graphs.CapturedProgram("cpu", lambda: None, [torch.zeros(1)])
+        graphs.CapturedProgram("cpu", lambda: None, [torch.zeros(1)],
+                               span="cpu")
 
 
 def test_no_kernel_is_built_during_a_capture(monkeypatch):
