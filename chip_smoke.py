@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from splatloam_tpu_torch/csrc, then:
   1. holds each kernel (K1 forward, K2 backward, K3 ranksum reduction,
      K4 scatter-add reduction, K5 backward fused with the scatter-add, K6
      overflow scatter-add, K7/K8/K9 forward, backward and scatter-add of
-     the flat slot layout, K10 the scatter-add under scatter_tps 8)
+     the flat slot layout, K10 the scatter-add under scatter_tps 8, K11
+     the mapper's image losses and their cotangent, at 16x256 and at the
+     reconstruction cell's 128x1024 against the float64 plain version)
      against its plain PyTorch version on the card, at the mapper's
      full-width shapes (64x1024 image, 4x16 tiles, chunk 256, 768 slots
      per tile, 100k surfels) and K1/K2 also at the small-pool geometry
@@ -569,7 +571,116 @@ def check_kernels(dev, rng) -> dict:
         check_scatter_adversarial(dev, kernels, cuda_raster, tiles, n_rows)
         check_tiles_adversarial(dev, kernels, binning, common, scene, tiles,
                                 params.chunk)
+    results["K11_image_loss"] = check_image_loss(
+        dev, kernels, np.random.default_rng(SEED + 11))
     return results
+
+
+def image_loss_inputs(rng, b: int, h: int, w: int, dev, tile=(4, 16)):
+    """K11's arguments for ``b`` synthetic views in the tiled layout: a
+    smooth range image rendered with alpha in (0, 1), a block of alpha 0
+    and of zero depth (degenerate normals), invalid pixels; K fitted to
+    +-45 degrees.  -> (out, depth, valid, K, T_cw)."""
+    from splatloam_tpu_torch.geometry import se3
+    from splatloam_tpu_torch.ops.rasterizer import binning
+    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    outs, depths, valids = [], [], []
+    for _ in range(b):
+        gt = 8.0 + 3.0 * np.sin(u * 6 * np.pi / w) + 4.0 * v / h
+        sd = gt + rng.normal(scale=0.05, size=gt.shape)
+        alpha = rng.uniform(0.05, 0.999, size=gt.shape)
+        alpha[2:6, 5:10] = 0.0
+        dsum = alpha * sd
+        dsum[8:12, 20:26] = 0.0
+        n = rng.normal(size=(h, w, 3))
+        n /= np.linalg.norm(n, axis=-1, keepdims=True)
+        ch = np.concatenate([dsum[..., None], alpha[..., None],
+                             alpha[..., None] * n,
+                             (sd + rng.normal(scale=0.05, size=gt.shape))
+                             [..., None], np.zeros((h, w, 1)),
+                             (1.0 - alpha)[..., None]], -1)
+        outs.append(binning.tile_image(
+            torch.tensor(ch, dtype=torch.float32), *tile))
+        depths.append(torch.tensor(gt, dtype=torch.float32))
+        valids.append(torch.tensor(rng.uniform(size=gt.shape) < 0.85))
+    fy = -(h - 1) / np.radians(90.0)
+    K = torch.tensor([[w / (2 * np.pi), 0.0, w / 2.0 - 1.0],
+                      [0.0, fy, -0.5 - fy * np.radians(45.0)],
+                      [0.0, 0.0, 1.0]], dtype=torch.float32)
+    q = torch.tensor(rng.normal(size=(b, 4)), dtype=torch.float32)
+    T_cw = torch.eye(4).repeat(b, 1, 1)
+    T_cw[:, :3, :3] = se3.quat_to_rotmat(q / q.norm(dim=-1, keepdim=True))
+    return tuple(x.to(dev) for x in (torch.cat(outs), torch.stack(depths),
+                                     torch.stack(valids),
+                                     K[None].repeat(b, 1, 1), T_cw))
+
+
+def hold_image_loss(name, kernels, args, kw) -> tuple[float, float]:
+    """K11 on ``args`` against its plain version in float64 (the loss to
+    1e-5 relative, g to 1e-4 of its largest entry over the pixels that
+    are not depth-L1 ties: the float32 plain version's own error is
+    printed beside), and run twice for the same bits.  -> (g's error over
+    its largest entry, the loss's relative error)."""
+    loss, g = kernels.image_loss(*args, **kw)
+    loss2, g2 = kernels.image_loss(*args, **kw)
+    f64 = [a.double() if a.is_floating_point() else a for a in args]
+    loss64, g64 = kernels.image_loss_plain(*f64, **kw)
+    loss32, g32 = kernels.image_loss_plain(*args, **kw)
+    ties = kernels.image_loss_ties(*args[:3], **kw)[..., None]
+    torch.cuda.synchronize()
+    gmax = float(g64.abs().max())
+
+    def err_of(x):
+        return float(torch.where(ties, 0.0, (x.double() - g64).abs()).max()
+                     ) / gmax
+
+    err, err32 = err_of(g), err_of(g32)
+    lerr = float(((loss.double() - loss64).abs() / loss64.abs()).max())
+    lerr32 = float(((loss32.double() - loss64).abs() / loss64.abs()).max())
+    print(f"[kernel] {name} vs the float64 plain version: g {err:.3e} of "
+          f"its largest (tol 1e-4; float32 plain version {err32:.3e}; "
+          f"{int(ties.sum())} depth-L1 ties of {ties.numel()} pixels held "
+          f"apart), loss {lerr:.3e} relative (tol 1e-5; float32 plain "
+          f"version {lerr32:.3e})", flush=True)
+    if not (err <= 1e-4 and lerr <= 1e-5):
+        fail(f"{name} disagrees with its plain version: g {err}, loss {lerr}")
+    if not (torch.equal(loss, loss2) and torch.equal(g, g2)):
+        fail(f"{name} is not deterministic")
+    return err, lerr
+
+
+def image_loss_bound(args) -> tuple[float, str]:
+    """K11's bound: out, the keyframes' depth and mask and K read once,
+    g and the loss written once."""
+    out = args[0]
+    return bound(nbytes(*args[:4]) + nbytes(out) + 4 * args[1].shape[0],
+                 0.0)
+
+
+def check_image_loss(dev, kernels, rng) -> dict:
+    """K11 against its plain version at 16x256 (one and 3 views) and at
+    the reconstruction cell's 128x1024 (2048 tiles of 64 px, one view),
+    with and without the median; timed at 128x1024 beside the plain
+    version."""
+    kw = dict(tile_h=4, tile_w=16, lambda_normal=0.1, lambda_alpha=0.05)
+    for b, h, w in ((1, 16, 256), (3, 16, 256), (1, 128, 1024)):
+        args = image_loss_inputs(rng, b, h, w, dev)
+        for ratio in (0.0, 0.5):
+            err, _ = hold_image_loss(f"K11_image_loss[{b}x{h}x{w}, "
+                                     f"depth_ratio {ratio}]", kernels, args,
+                                     dict(kw, depth_ratio=ratio))
+    kw["depth_ratio"] = 0.0
+    ms = time_ms(lambda: kernels.image_loss(*args, **kw))
+    pms = event_ms(lambda: kernels.image_loss_plain(*args, **kw), 5)
+    b_ms, by = image_loss_bound(args)
+    report("K11_image_loss[128x1024]", err, 1e-4, ms, pms)
+    print(f"[kernel] K11 at 128x1024 (2048 tiles x 64 px, one view): "
+          f"{ms:.4f} ms, bound {b_ms:.4f} ms ({by}), plain version "
+          f"{pms:.4f} ms; torch.profiler "
+          f"{profile_ms(lambda: kernels.image_loss(*args, **kw))}",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=by, library_ms=None)
 
 
 def confirm_k3_cause(kernels, rows, plan, r_alloc, n_rows,
@@ -1950,6 +2061,9 @@ def run_slice(dev, rng, overrides=()):
     for k in ("K1_fwd", "K2_bwd", "K3_ranksum"):
         if launches[k] == 0:
             fail(f"{k} was not launched on the main path")
+    if launches["K11_image_loss"] != iters:
+        fail(f"K11 launched {launches['K11_image_loss']} times for {iters} "
+             "iterations")
     if not all(np.isfinite(emas)):
         fail(f"loss EMA not finite: {emas}")
     for name, p in zip(S.SurfelParams._fields, model.surfels.params):
@@ -3514,7 +3628,24 @@ def check_recon_kernels(mapper, frame, rng) -> dict:
           f"entries {plan.pos.numel()} ({n_real3} real); bounds K1 "
           f"{b1:.4f} ms ({by1}), K2 {b2:.4f} ms ({by2}), K3 {b3:.4f} ms "
           f"({by3})", flush=True)
-    return {"K1_fwd": (ms1, b1), "K2_bwd": (ms2, b2), "K3_ranksum": (ms3, b3)}
+    mc = mapper.cfg.mapping
+    k11_args = (out, cam.depth[None], cam.valid[None], cam.K[None],
+                cam.T_cw[None])
+    k11_kw = dict(tile_h=params.tile_h, tile_w=params.tile_w,
+                  lambda_normal=mc.opt_lambda_normal,
+                  lambda_alpha=mc.opt_lambda_alpha,
+                  depth_ratio=mapper.cfg.opt.depth_ratio)
+    err11, _ = hold_image_loss("K11_image_loss[recon]", kernels, k11_args,
+                               k11_kw)
+    ms11 = time_ms(lambda: kernels.image_loss(*k11_args, **k11_kw))
+    pms11 = event_ms(lambda: kernels.image_loss_plain(*k11_args, **k11_kw),
+                     5)
+    b11, by11 = image_loss_bound(k11_args)
+    report("K11_image_loss[recon]", err11, 1e-4, ms11, pms11)
+    print(f"[recon] K11 on the keyframe's render: {ms11:.4f} ms, bound "
+          f"{b11:.4f} ms ({by11}), plain version {pms11:.4f} ms", flush=True)
+    return {"K1_fwd": (ms1, b1), "K2_bwd": (ms2, b2), "K3_ranksum": (ms3, b3),
+            "K11_image_loss": (ms11, b11)}
 
 
 def run_recon(dev, tmp: Path, overrides=()):
@@ -3625,9 +3756,12 @@ def run_recon(dev, tmp: Path, overrides=()):
         fail(f"the last update's pool holds {ups[-1]['cap']} rows, fewer "
              "than 131,072")
     if launches.get("K2_bwd") != iters or \
-            launches.get("K3_ranksum") != iters:
-        fail(f"K2/K3 launched {launches.get('K2_bwd')}/"
-             f"{launches.get('K3_ranksum')} times for {iters} iterations")
+            launches.get("K3_ranksum") != iters or \
+            launches.get("K11_image_loss") != iters:
+        fail(f"K2/K3/K11 launched {launches.get('K2_bwd')}/"
+             f"{launches.get('K3_ranksum')}/"
+             f"{launches.get('K11_image_loss')} times for {iters} "
+             "iterations")
     if k1 < iters + densify_renders + mesh["k1"]:
         fail(f"K1 launched {k1} times, fewer than the {iters} iterations, "
              f"{densify_renders} densify renders and {mesh['k1']} mesh "

@@ -9,7 +9,11 @@ Backends: "cuda" = the kernel path (on CPU tensors its kernels run their
 plain PyTorch versions), "eager" = the golden O(N*P) renderer, "auto" =
 "cuda".  The tensors' device decides where the work runs.  ``render_batch``
 renders B views of one surfel set, on the cuda backend through one launch
-of each kernel.
+of each kernel.  ``render_loss`` is the mapper's render and image losses
+of one view or B views (``image_losses`` of the decoded render): on the
+cuda backend the forward's output goes straight into K11, which writes
+each view's loss and its cotangent for the backward, and no render
+package is built.
 """
 from __future__ import annotations
 
@@ -175,6 +179,61 @@ def _decode(chans, T_cw, K, depth_ratio) -> dict:
         "radii": chans["radii"],
         "visibility_filter": chans["radii"] > 0,
     }
+
+
+def image_losses(pkg, gt_depth, valid, lambda_normal: float,
+                 lambda_alpha: float):
+    """The mapping losses of each view, over the last two (H, W) dims of a
+    render package: depth L1 (a mean over all pixels) + lambda_alpha *
+    Eq 16 (BCE of alpha against the valid mask) + lambda_normal * Eq 15
+    (normal consistency), the last two over the valid pixels."""
+    hw = (-2, -1)
+    validf = valid.to(torch.float32)
+    n_valid = torch.clamp(torch.sum(validf, dim=hw), min=1.0)
+    # depth L1: mean over ALL pixels of |valid * (est - gt)|
+    geom_l1 = torch.mean(torch.abs(validf * (pkg["surf_depth"]
+                                             - gt_depth)), dim=hw)
+    # Eq 15: normal consistency on valid pixels
+    ndot = torch.sum(pkg["rend_normal"] * pkg["surf_normal"], dim=-1)
+    normal_loss = torch.sum((1.0 - ndot) * validf, dim=hw) / n_valid
+    normal_loss = normal_loss * lambda_normal
+    # Eq 16: BCE(alpha, valid) on valid pixels (targets are 1)
+    a = torch.clamp(pkg["rend_alpha"], 1e-7, 1.0 - 1e-7)
+    alpha_loss = torch.sum(-torch.log(a) * validf, dim=hw) / n_valid
+    alpha_loss = alpha_loss * lambda_alpha
+    return geom_l1 + alpha_loss + normal_loss
+
+
+def render_loss(xyz, scaling, rotation, opacity, T_cw, K, gt_depth, valid,
+                params: RenderParams, *, lambda_normal: float,
+                lambda_alpha: float, depth_ratio: float = 0.0,
+                tiles=None):
+    """``image_losses`` of the render at one view (T_cw [4, 4], K, the
+    keyframe's depth and valid mask [H, W]: a 0-d loss) or at B views
+    (T_cw [B, 4, 4], K [B, 3, 3], depth and valid [B, H, W]: loss [B]),
+    differentiable in the surfel parameters.  The cuda backend runs K1
+    over the tiled layout (the only one it takes here) and K11, and its
+    backward scales K11's cotangent by the loss's; ``tiles`` as for
+    ``render`` (``render_batch`` with B views).  The eager backend is
+    ``render`` followed by the losses."""
+    one = T_cw.dim() == 2
+    if _resolve_backend(params.backend) == "eager":
+        draw = render if one else render_batch
+        pkg = draw(xyz, scaling, rotation, opacity, T_cw, K, params,
+                   depth_ratio)
+        return image_losses(pkg, gt_depth, valid, lambda_normal,
+                            lambda_alpha)
+    from .cuda_raster import _stack_views, rasterize_loss_cuda_batched
+    if one:
+        T_cw, K, gt_depth, valid = (x[None] for x in (T_cw, K, gt_depth,
+                                                      valid))
+        if tiles is not None:
+            tiles = _stack_views([tiles])
+    loss = rasterize_loss_cuda_batched(
+        xyz, scaling, rotation, opacity, T_cw, K, gt_depth, valid, params,
+        lambda_normal=lambda_normal, lambda_alpha=lambda_alpha,
+        depth_ratio=depth_ratio, tiles=tiles)
+    return loss.reshape(()) if one else loss
 
 
 def render_batch(xyz, scaling, rotation, opacity, T_cw, K,

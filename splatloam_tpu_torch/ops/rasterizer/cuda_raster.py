@@ -29,6 +29,10 @@ bucketed and flat slot layouts, one view or B views over one surfel set:
     row offset, and per-view reduction plans reduce view by view;
   * gradients reach the surfel params and the poses through torch autograd
     of ``pack_surfels``, summed over the views;
+  * the mapper's loss (``rasterize_loss_cuda_batched``): K11 takes the
+    forward's output to each view's image losses and writes their
+    cotangent for the backward beside them (``_RasterLoss``), so no
+    channel dict is built on that path;
   * every channel is differentiated.  Over the composited slots alpha +
     final T = 1 exactly, so the final-T cotangent is folded into alpha's
     before the backward (``_fold_final_T``) and no kernel reads it; with
@@ -394,12 +398,16 @@ class _RasterCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return (_RasterCore.grad(ctx, _fold_final_T(g)),
+                None, None, None, None, None, None)
+
+    @staticmethod
+    def grad(ctx, g):
+        """dF from the output cotangents ``g``, final T's folded in."""
         (F, lists, counts, rays_t, pix_t, tbound, out,
          med_slot) = ctx.saved_tensors
-        dF = _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, out,
-                             _fold_final_T(g), ctx.static, ctx.plans,
-                             med_slot)
-        return dF, None, None, None, None, None, None
+        return _backward_tiled(F, lists, counts, rays_t, pix_t, tbound, out,
+                               g, ctx.static, ctx.plans, med_slot)
 
 
 class _RasterCoreFlat(torch.autograd.Function):
@@ -430,6 +438,29 @@ class _RasterCoreFlat(torch.autograd.Function):
             with_dist=static.with_dist, med_slot=med_slot)
         dF = kernels.scatter_rows_flat(rows, ids, starts, F.shape[0])
         return dF, None, None, None, None, None
+
+
+class _RasterLoss(torch.autograd.Function):
+    """loss [B] = image_loss(out) of K1's output out [B*T, P, 8] over the
+    tiled layout (``_RasterCore``'s forward), ``image_loss`` K11 against
+    the views' keyframes, which writes the cotangent g of the loss with
+    respect to out beside it; the backward scales each view's g by the
+    loss's cotangent and runs ``_RasterCore``'s backward on it.  Only F
+    receives a gradient."""
+
+    @staticmethod
+    def forward(ctx, image_loss, F, *layout):
+        out = _RasterCore.forward(ctx, F, *layout)
+        loss, ctx.g = image_loss(out)
+        ctx.n_layout = len(layout)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g_loss):
+        g = ctx.g
+        g = (g.reshape(g_loss.shape[0], -1) * g_loss[:, None]).reshape(
+            g.shape)
+        return (None, _RasterCore.grad(ctx, g), *(None,) * ctx.n_layout)
 
 
 class _RasterCoreBucketed(torch.autograd.Function):
@@ -481,17 +512,9 @@ class _RasterCoreBucketed(torch.autograd.Function):
 
 def _channels(out, radii, params) -> dict:
     """Kernel output [B, T, P, 8] -> the channel dict with a leading [B]."""
-    chans = binning.untile_px(out, params.height, params.width,
-                              params.tile_h, params.tile_w)
-    return {
-        "depth_sum": chans[:, 0],
-        "alpha": chans[:, 1],
-        "normal_sum": torch.movedim(chans[:, 2:5], 1, -1),
-        "median": chans[:, 5],
-        "dist": chans[:, 6],
-        "final_T": chans[:, 7],
-        "radii": radii,
-    }
+    return {**kernels.out_channels(out, params.height, params.width,
+                                   params.tile_h, params.tile_w),
+            "radii": radii}
 
 
 def rasterize_cuda(xyz, scaling, rotation, opacity, T_cw, K, params,
@@ -516,13 +539,9 @@ def rasterize_cuda(xyz, scaling, rotation, opacity, T_cw, K, params,
             _channels(out[None], packed.radius_px[None], params).items()}
 
 
-def rasterize_cuda_batched(xyz, scaling, rotation, opacity, T_cw, K, params,
-                           tiles: TileAssignment | FlatTiles | None = None
-                           ) -> dict:
-    """Multi-view rasterization: poses T_cw [B, 4, 4] and intrinsics
-    K [B, 3, 3] over one surfel set, all views in one launch of each
-    kernel.  Every channel gains a leading [B] axis; ``tiles`` (from
-    prepare_tiles_batched) reuses a frozen binning."""
+def _batched_core(xyz, scaling, rotation, opacity, T_cw, K, params, tiles):
+    """The B views' pool and frozen binning as a core's inputs ->
+    (the packed views, the core Function, its arguments (F first))."""
     _check_params(params)
     if params.layout == "bucketed":
         raise ValueError("layout='bucketed' is single-view (use "
@@ -540,16 +559,53 @@ def rasterize_cuda_batched(xyz, scaling, rotation, opacity, T_cw, K, params,
     rays = tiles.rays_t.reshape(-1, *tiles.rays_t.shape[2:])
     pix = tiles.pix_t.reshape(-1, *tiles.pix_t.shape[2:])
     if isinstance(tiles, FlatTiles):
-        out = _RasterCoreFlat.apply(
-            F, _pool_ids(tiles.flat_ids, n_plus1).reshape(-1),
-            tiles.starts, rays, pix, static)
-    else:
-        plans = (None if tiles.plan is None else
-                 tuple(_view(tiles.plan, v) for v in range(b)))
-        lists = _pool_ids(tiles.lists, n_plus1)
-        out = _RasterCore.apply(F, lists.reshape(-1, lists.shape[-1]),
-                                tiles.counts.reshape(-1), rays, pix, static,
-                                plans)
+        return packed, _RasterCoreFlat, (
+            F, _pool_ids(tiles.flat_ids, n_plus1).reshape(-1), tiles.starts,
+            rays, pix, static)
+    plans = (None if tiles.plan is None else
+             tuple(_view(tiles.plan, v) for v in range(b)))
+    lists = _pool_ids(tiles.lists, n_plus1)
+    return packed, _RasterCore, (
+        F, lists.reshape(-1, lists.shape[-1]), tiles.counts.reshape(-1),
+        rays, pix, static, plans)
+
+
+def rasterize_cuda_batched(xyz, scaling, rotation, opacity, T_cw, K, params,
+                           tiles: TileAssignment | FlatTiles | None = None
+                           ) -> dict:
+    """Multi-view rasterization: poses T_cw [B, 4, 4] and intrinsics
+    K [B, 3, 3] over one surfel set, all views in one launch of each
+    kernel.  Every channel gains a leading [B] axis; ``tiles`` (from
+    prepare_tiles_batched) reuses a frozen binning."""
+    packed, core, args = _batched_core(xyz, scaling, rotation, opacity,
+                                       T_cw, K, params, tiles)
+    b = T_cw.shape[0]
+    out = core.apply(*args)
     radii = (packed[0].radius_px[None] if b == 1 else
              torch.stack([p.radius_px for p in packed]))
     return _channels(out.reshape(b, -1, *out.shape[1:]), radii, params)
+
+
+def rasterize_loss_cuda_batched(xyz, scaling, rotation, opacity, T_cw, K,
+                                gt_depth, valid, params, *,
+                                lambda_normal: float, lambda_alpha: float,
+                                depth_ratio: float,
+                                tiles: TileAssignment | FlatTiles
+                                | None = None):
+    """The mapper's image losses of B views (api.image_losses of each
+    decoded render), loss [B]: the views' forward, as in
+    rasterize_cuda_batched, then K11 on its output, against the
+    keyframes' depth and valid mask [B, H, W].  The tiled layout only
+    (the mapper's)."""
+    if params.layout != "tiled":
+        raise ValueError(f"the image losses take the tiled layout, not "
+                         f"layout={params.layout!r}")
+    *_, args = _batched_core(xyz, scaling, rotation, opacity, T_cw, K,
+                             params, tiles)
+
+    def image_loss(out):
+        return kernels.image_loss(
+            out, gt_depth, valid, K, T_cw, tile_h=params.tile_h,
+            tile_w=params.tile_w, lambda_normal=lambda_normal,
+            lambda_alpha=lambda_alpha, depth_ratio=depth_ratio)
+    return _RasterLoss.apply(image_loss, *args)

@@ -12,6 +12,10 @@ plain PyTorch versions.
   K8 raster_bwd_flat   <- pallas_raster.py:_bwd_kernel_flat
   K9 scatter_rows_flat <- pallas_raster.py:_scatter_rows_kernel_flat
   K10 scatter_rows_tps <- pallas_raster.py:_scatter_rows_kernel_batched
+  K11 image_loss       <- none: the mapper's decode and image losses, which
+                          the JAX package leaves to XLA
+                          (splatloam_tpu/ops/rasterizer/api.py:_decode,
+                          splatloam_tpu/slam/mapper.py:_loss)
 
 Each wrapper takes the plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel (built at first use from
@@ -39,6 +43,11 @@ never reads the final-T channel's cotangent (cuda_raster folds it into
 alpha's: alpha + final T = 1 over the composited slots).
 Several views share one launch through a pool F [B*(N+1), 16] whose
 slot ids carry each view's row offset.
+
+K11 (the mapper's image losses): out [B*T, P, 8] of B views of H x W
+pixels, the keyframes' depth [B, H, W] and valid mask [B, H, W] bool, K
+[B, 3, 3] -> loss [B] and g [B*T, P, 8], the loss's cotangent in K2's
+layout.
 
 Flat layout (K7-K9): ids [B*E] int32 slot ids into the pool (pads name a
 view's zero row N), starts [B, T+1] int32 chunk-aligned segment starts of
@@ -138,6 +147,11 @@ KERNELS = {
     "K10_scatter_rows_tps": Kernel(
         "K10_scatter_rows_tps", "scatter_rows.cu", "launch_scatter_rows",
         (_P,) * 4 + (_I, _I, _P), f"{_TPU}:511"),
+    "K11_image_loss": Kernel(
+        "K11_image_loss", "image_loss.cu", "launch_image_loss",
+        (_P,) * 8 + (_I,) * 5 + (_F,) * 4 + (_P,),
+        "none (XLA: splatloam_tpu/ops/rasterizer/api.py:165 _decode, "
+        "splatloam_tpu/slam/mapper.py:280 _loss)"),
 }
 
 
@@ -974,3 +988,123 @@ def scatter_rows_flat(rows, ids, starts, n_rows: int):
             starts.data_ptr(), dF.data_ptr(), n_views, n_slots // n_views,
             tp1 - 1, n_rows // n_views, _stream(rows))
     return dF
+
+
+# ---------------------------------------------------------------------------
+# K11: the mapper's image losses and their cotangent
+# ---------------------------------------------------------------------------
+
+# pixels a block of K11's two grids, and so one partial sum a view
+# (csrc/image_loss.cu: THREADS)
+LOSS_BLOCK = 256
+
+
+def out_channels(out, height: int, width: int, tile_h: int,
+                 tile_w: int) -> dict:
+    """Forward output [B, T, P, 8] -> its channels, each with a leading
+    [B]: depth_sum, alpha, normal_sum [B, H, W, 3], median, dist,
+    final_T."""
+    from .binning import untile_px
+    chans = untile_px(out, height, width, tile_h, tile_w)
+    return {
+        "depth_sum": chans[:, 0],
+        "alpha": chans[:, 1],
+        "normal_sum": torch.movedim(chans[:, 2:5], 1, -1),
+        "median": chans[:, 5],
+        "dist": chans[:, 6],
+        "final_T": chans[:, 7],
+    }
+
+
+def image_loss_plain(out, depth, valid, K, T_cw, *, tile_h: int,
+                     tile_w: int, lambda_normal: float, lambda_alpha: float,
+                     depth_ratio: float):
+    """Plain version of K11: each view's render package decoded from the
+    forward's output (api._decode) and its image losses
+    (api.image_losses), and their gradient with respect to ``out`` by
+    autograd."""
+    from .api import _decode, image_losses
+    b, height, width = depth.shape
+    with torch.enable_grad():
+        o = out.detach().requires_grad_(True)
+        chans = out_channels(o.reshape(b, -1, *o.shape[1:]), height, width,
+                             tile_h, tile_w)
+        chans["radii"] = o.new_zeros((b, 1))
+        loss = torch.stack([image_losses(
+            _decode({k: c[v] for k, c in chans.items()}, T_cw[v], K[v],
+                    depth_ratio),
+            depth[v], valid[v], lambda_normal, lambda_alpha)
+            for v in range(b)])
+        (g,) = torch.autograd.grad(loss.sum(), o)
+    return loss.detach(), g.contiguous()
+
+
+def image_loss_ties(out, depth, valid, *, tile_h: int, tile_w: int,
+                    depth_ratio: float, **_) -> torch.Tensor:
+    """[B*T, P] bool in K11's tiled layout: the valid pixels whose surface
+    depth (float64) lies within 1e-5 relative of the keyframe's.  There
+    the depth L1's cotangent is a sign that float32 rounding may flip
+    (|x| has no derivative at 0), so no precision holds it: a comparison
+    of ``g`` leaves them apart."""
+    from .binning import tile_image
+    b, height, width = depth.shape
+    out, depth = out.double(), depth.double()
+    ch = out_channels(out.reshape(b, -1, *out.shape[1:]), height, width,
+                      tile_h, tile_w)
+    a = ch["alpha"]
+    de = torch.where(a > 0, ch["depth_sum"] / torch.where(a > 0, a, 1.0), 0.0)
+    sd = de * (1.0 - depth_ratio) + ch["median"] * depth_ratio
+    tie = valid & ((sd - depth).abs() <= 1e-5 * depth.abs())
+    return torch.cat([tile_image(tie[v], tile_h, tile_w) for v in range(b)])
+
+
+def image_loss(out, depth, valid, K, T_cw, *, tile_h: int, tile_w: int,
+               lambda_normal: float, lambda_alpha: float,
+               depth_ratio: float):
+    """K11: out [B*T, P, 8] (K1's or K7's output over B views of H x W
+    pixels in tile_h x tile_w tiles), the keyframes' depth [B, H, W] and
+    valid mask [B, H, W] bool, K [B, 3, 3] -> (loss [B], g [B*T, P, 8]):
+    each view's depth L1, Eq 16 and Eq 15 (api.image_losses of the
+    decoded render) and their gradient with respect to ``out``, final T's
+    0 and the median's only with ``depth_ratio`` > 0.  The loss does not
+    depend on the pose: the kernel works in the camera frame and reads
+    only K; ``T_cw`` [B, 4, 4] serves the plain version's decode.  Inside
+    the debug checks a non-finite loss or cotangent raises."""
+    kw = dict(tile_h=tile_h, tile_w=tile_w, lambda_normal=lambda_normal,
+              lambda_alpha=lambda_alpha, depth_ratio=depth_ratio)
+    if not _on_cuda(out):
+        loss, g = image_loss_plain(out, depth, valid, K, T_cw, **kw)
+    else:
+        loss, g = _launch_image_loss(out, depth, valid, K, **kw)
+    if debug.checks_active():
+        debug.assert_finite_state({"loss": loss, "g": g},
+                                  what="the image loss (K11)")
+    return loss, g
+
+
+def _launch_image_loss(out, depth, valid, K, *, tile_h: int, tile_w: int,
+                       lambda_normal: float, lambda_alpha: float,
+                       depth_ratio: float):
+    b, height, width = depth.shape
+    dev = out.device
+    if height % tile_h or width % tile_w:
+        raise ValueError(f"image {height}x{width} not divisible by tile "
+                         f"{tile_h}x{tile_w}")
+    n_tiles = b * (height // tile_h) * (width // tile_w)
+    _check("out", out, torch.float32, (n_tiles, tile_h * tile_w, 8), dev)
+    _check("depth", depth, torch.float32, (b, height, width), dev, align=4)
+    _check("valid", valid, torch.bool, (b, height, width), dev, align=1)
+    _check("K", K, torch.float32, (b, 3, 3), dev, align=4)
+    n_blocks = -(-height * width // LOSS_BLOCK)
+    scratch = torch.empty((b, 9, height, width), dtype=torch.float32,
+                          device=dev)
+    partials = torch.empty((b, n_blocks, 4), dtype=torch.float32,
+                           device=dev)
+    loss = torch.empty((b,), dtype=torch.float32, device=dev)
+    g = torch.empty_like(out)
+    _launch("K11_image_loss", out.data_ptr(), depth.data_ptr(),
+            valid.data_ptr(), K.data_ptr(), scratch.data_ptr(),
+            partials.data_ptr(), loss.data_ptr(), g.data_ptr(), b, height,
+            width, tile_h, tile_w, float(lambda_normal), float(lambda_alpha),
+            float(depth_ratio), float(1.0 - depth_ratio), _stream(out))
+    return loss, g

@@ -30,7 +30,7 @@ import torch
 # blocks every 6th frame) records 85 spans on an update frame and 8 on
 # the others, 20.8 a frame: the ring holds its newest ~12,600 frames
 RING_SPANS = 1 << 18
-# counter increments kept: 34 an update there (32 replays), ~11,500 frames
+# counter increments kept: 35 an update there (32 replays), ~11,200 frames
 RING_COUNTS = 1 << 16
 
 

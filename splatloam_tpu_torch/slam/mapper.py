@@ -10,7 +10,11 @@ Counterpart of splatloam_tpu/slam/mapper.py:
     one keyframe drawn from the geometric replay distribution (or
     ``mapping.views_per_iteration`` keyframes drawn with replacement,
     rendered in one batched pass and their losses averaged), with the
-    paper's losses (Eq 15-17) and EMA early stopping.  On CUDA each block
+    paper's losses (Eq 15-17) and EMA early stopping.  The image losses
+    come from ``api.render_loss``: on CUDA the forward's output goes
+    straight into K11, which writes the losses and their cotangent for
+    the backward (each update adds its K11 launches to the profiler's
+    ``kernel.K11_image_loss``).  On CUDA each block
     is a captured CUDA graph (graphs.CapturedProgram over StaticBlock's
     buffers), the counterpart of the JAX package's jitted
     ``while_loop``: the host replays one graph per block and reads the
@@ -45,9 +49,11 @@ from ..model.camera import Camera
 from ..model.frame import Frame
 from ..model.local_model import LocalModel
 from ..ops import knn
+from ..ops.rasterizer import kernels
 from ..ops.rasterizer.api import (RenderParams, adaptive_geometry,
-                                  fit_geometry, prepare_tiles,
-                                  prepare_tiles_batch, render, render_batch)
+                                  fit_geometry, image_losses, prepare_tiles,
+                                  prepare_tiles_batch, render, render_batch,
+                                  render_loss)
 from ..profiling import get_profiler
 
 logger = get_logger("mapper")
@@ -433,51 +439,54 @@ class MapperPrograms:
 
     def _image_losses(self, pkg, gt_depth, valid):
         """Depth L1 + Eq 16 + Eq 15 of each view, over the last two (H, W)
-        dims of the render package."""
+        dims of a render package (api.image_losses with this config's
+        weights).  The optimize iterations take these losses through
+        ``render_loss`` (K11 on CUDA) unless an instance replaces this
+        method, as the benchmark's half_batch fault does
+        (benchmark/faults.py): ``_view_losses`` then renders and calls the
+        replacement.  Kept for that fault, until it is planted where K11
+        reads."""
         mc = self.cfg.mapping
-        hw = (-2, -1)
-        validf = valid.to(torch.float32)
-        n_valid = torch.clamp(torch.sum(validf, dim=hw), min=1.0)
-        # depth L1: mean over ALL pixels of |valid * (est - gt)|
-        geom_l1 = torch.mean(torch.abs(validf * (pkg["surf_depth"]
-                                                 - gt_depth)), dim=hw)
-        # Eq 15: normal consistency on valid pixels
-        ndot = torch.sum(pkg["rend_normal"] * pkg["surf_normal"], dim=-1)
-        normal_loss = torch.sum((1.0 - ndot) * validf, dim=hw) / n_valid
-        normal_loss = normal_loss * mc.opt_lambda_normal
-        # Eq 16: BCE(alpha, valid) on valid pixels (targets are 1)
-        a = torch.clamp(pkg["rend_alpha"], 1e-7, 1.0 - 1e-7)
-        alpha_loss = torch.sum(-torch.log(a) * validf, dim=hw) / n_valid
-        alpha_loss = alpha_loss * mc.opt_lambda_alpha
-        return geom_l1 + alpha_loss + normal_loss
+        return image_losses(pkg, gt_depth, valid, mc.opt_lambda_normal,
+                            mc.opt_lambda_alpha)
 
     def _scale_penalty(self, scaling, active):
         return scale_penalty(scaling, active, self.cfg.mapping)
 
-    def _loss(self, params: S.SurfelParams, active, kf: KeyframeBatch,
-              kf_idx, tiles=None):
+    def _view_losses(self, params: S.SurfelParams, active, kf: KeyframeBatch,
+                     kf_idx, tiles):
+        """(each view's image loss, the activated scales) at the keyframe
+        index ``kf_idx`` (0-d: a 0-d loss; [B]: loss [B])."""
+        mc = self.cfg.mapping
         scaling = torch.exp(params.log_scale)
         opacity = torch.sigmoid(params.logit_opacity) * active
-        pkg = render(params.xyz, scaling, params.quat, opacity,
-                     take(kf.T_cw, kf_idx), take(kf.K, kf_idx), self.params,
-                     self.cfg.opt.depth_ratio, tiles=tiles)
-        return (self._image_losses(pkg, take(kf.depth, kf_idx),
-                                   take(kf.valid, kf_idx))
-                + self._scale_penalty(scaling, active))
+        T_cw, K = take(kf.T_cw, kf_idx), take(kf.K, kf_idx)
+        depth, valid = take(kf.depth, kf_idx), take(kf.valid, kf_idx)
+        if "_image_losses" in vars(self):
+            # K11 computes this class's _image_losses, not a replacement
+            draw = render if T_cw.dim() == 2 else render_batch
+            pkg = draw(params.xyz, scaling, params.quat, opacity, T_cw, K,
+                       self.params, self.cfg.opt.depth_ratio, tiles=tiles)
+            return self._image_losses(pkg, depth, valid), scaling
+        loss = render_loss(params.xyz, scaling, params.quat, opacity, T_cw,
+                           K, depth, valid, self.params,
+                           lambda_normal=mc.opt_lambda_normal,
+                           lambda_alpha=mc.opt_lambda_alpha,
+                           depth_ratio=self.cfg.opt.depth_ratio, tiles=tiles)
+        return loss, scaling
+
+    def _loss(self, params: S.SurfelParams, active, kf: KeyframeBatch,
+              kf_idx, tiles=None):
+        loss, scaling = self._view_losses(params, active, kf, kf_idx, tiles)
+        return loss + self._scale_penalty(scaling, active)
 
     def _loss_multi(self, params: S.SurfelParams, active, kf: KeyframeBatch,
                     kf_idx, tiles=None):
         """views_per_iteration > 1: the mean of the per-view losses of the
-        keyframes kf_idx [B], rendered through one batched pass."""
-        scaling = torch.exp(params.log_scale)
-        opacity = torch.sigmoid(params.logit_opacity) * active
-        pkg = render_batch(params.xyz, scaling, params.quat, opacity,
-                           take(kf.T_cw, kf_idx), take(kf.K, kf_idx),
-                           self.params, self.cfg.opt.depth_ratio,
-                           tiles=tiles)
-        return (torch.mean(self._image_losses(pkg, take(kf.depth, kf_idx),
-                                              take(kf.valid, kf_idx)))
-                + self._scale_penalty(scaling, active))
+        keyframes kf_idx [B], rendered through one batched pass (on the
+        cuda backend the mean is each view's 1/B in K11's backward)."""
+        loss, scaling = self._view_losses(params, active, kf, kf_idx, tiles)
+        return torch.mean(loss) + self._scale_penalty(scaling, active)
 
     def one_iter(self, surf: S.Surfels, st: S.AdamState, kf: KeyframeBatch,
                  kf_idx, tiles):
@@ -812,6 +821,8 @@ class Mapper:
         kf_cap = ((len(model.keyframes) + bucket - 1) // bucket) * bucket
         with prof.phase("map.stack_kf"):
             kf = self._stack_keyframes(kf_cap)
+        k11 = kernels.KERNELS["K11_image_loss"]
+        k11_before = k11.launches
         with prof.phase("map.optimize"):
             with prof.phase("map.optimize.draw"):
                 kf_indices = self._draw_keyframes(kf.probs,
@@ -819,6 +830,8 @@ class Mapper:
             surf, adam, ema, n_iters = optimize(surf, adam, kf, kf_indices)
             with prof.phase("map.optimize.drain"):
                 ema_value = float(ema)   # waits for the device
+        # the update's image-loss launches, replays' included
+        prof.count("kernel.K11_image_loss", k11.launches - k11_before)
         logger.debug(f"optimize done after {n_iters} iters, "
                      f"loss_ema={ema_value:.4f}")
 

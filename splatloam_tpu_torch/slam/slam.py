@@ -120,6 +120,12 @@ class SLAM:
             self.timestamps.append(frame.timestamp)
             logger.info(f"t={frame.timestamp} | pos={wTf[:3, -1]}")
             self._log_frame(frame, dlog)
+            if self.local_models[-1].keyframes[-1] is not frame:
+                # nothing reads a processed sweep's normal map again (the
+                # tracker and the mapper read the keyframes'): 1.5 MB of
+                # device memory a 128x1024 sweep that ``frames`` would
+                # otherwise hold for the whole run
+                frame.camera = frame.camera._replace(normal=None)
 
     def _log_frame(self, frame: Frame, dlog) -> None:
         """Per-frame observability: transform tree, input cloud, rendered

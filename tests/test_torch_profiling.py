@@ -162,7 +162,8 @@ def test_counters_are_tagged_by_frame(run):
     counts = prof.counts()
     assert [(c.name, c.frame) for c in counts] == [
         (name, f) for f in KEYFRAMES
-        for name in ("map.densify.added", "map.prune.removed")]
+        for name in ("map.densify.added", "kernel.K11_image_loss",
+                     "map.prune.removed")]
     model = run["slam"].local_models[-1]
     added = sum(c.value for c in counts if c.name == "map.densify.added")
     removed = sum(c.value for c in counts if c.name == "map.prune.removed")
