@@ -7,19 +7,27 @@ outlives its run's program.
                    unchanged (the submap's first update still runs)
   optimize_frozen  the optimize loop returns the pool it was given;
                    densify and prune still run
-  half_batch       each optimize iteration's loss is taken over the left
-                   half of the view's pixels, its means over that half
+  half_batch       the optimize iterations see the left half of each
+                   keyframe: the stacked keyframes' depth and valid
+                   masks, which K11 reads, cut to it (the right half
+                   invalid), so that the alpha and normal losses are
+                   means over the left half (the depth L1, a mean over
+                   all pixels by the loss's definition, counts it alone)
   half_sweep       Preprocessor gets every other point of each sweep
   depth_altered    each frame's range image altered where it is made
   render_altered   the depth of the render that densify reads altered
                    where the rasterizer hands it over
+  track_frozen     the tracker's aligner returns its guess
+  track_short      the tracker's Gauss-Newton loop stops after 2
+                   iterations
 """
 from __future__ import annotations
 
-import torch
+import numpy as np
 
 NAMES = ("map_frozen", "optimize_frozen", "half_batch", "half_sweep",
-         "depth_altered", "render_altered")
+         "depth_altered", "render_altered", "track_frozen", "track_short")
+SHORT_ITERATIONS = 2
 
 
 def _on_programs(mapper, change) -> None:
@@ -45,21 +53,17 @@ def _optimize_frozen(progs) -> None:
     progs.optimize = unchanged
 
 
-def _half_batch(progs) -> None:
-    losses = progs._image_losses
+def _half_batch(mapper) -> None:
+    stack = mapper._stack_keyframes
 
-    def half(pkg, gt_depth, valid):
-        axis, keep = gt_depth.ndim - 1, gt_depth.shape[-1] // 2
-
-        def cut(t):
-            return t.narrow(axis, 0, keep)
-        pkg = {k: cut(v) if torch.is_tensor(v) and
-               v.shape[:axis + 1] == gt_depth.shape else v
-               for k, v in pkg.items()}
-        return losses(pkg, cut(gt_depth), cut(valid))
-    progs._image_losses = half
-    # the block graphs captured in set-up hold the whole loss
-    progs.release_graphs()
+    def left_half(kf_cap):
+        kf = stack(kf_cap)
+        keep = kf.depth.shape[-1] // 2
+        depth, valid = kf.depth.clone(), kf.valid.clone()
+        depth[..., keep:] = 0.0
+        valid[..., keep:] = False
+        return kf._replace(depth=depth, valid=valid)
+    mapper._stack_keyframes = left_half
 
 
 def plant(name: str, prog) -> None:
@@ -74,7 +78,7 @@ def plant(name: str, prog) -> None:
     elif name == "optimize_frozen":
         _on_programs(slam.mapper, _optimize_frozen)
     elif name == "half_batch":
-        _on_programs(slam.mapper, _half_batch)
+        _half_batch(slam.mapper)
     elif name in ("half_sweep", "depth_altered"):
         pre = prog.pre
 
@@ -93,5 +97,13 @@ def plant(name: str, prog) -> None:
             pkg = dict(pkg, surf_depth=pkg["surf_depth"] * 1.001)
             return keep(surfels, camera, pkg)
         prog.densify_render = altered_render
+    elif name == "track_frozen":
+        slam.tracker.aligner.align = lambda iguess: \
+            np.array(iguess, np.float64)
+    elif name == "track_short":
+        aligner = slam.tracker.aligner
+        settings = aligner.solver_settings
+        aligner.solver_settings = lambda: dict(
+            settings(), num_iterations=SHORT_ITERATIONS)
     else:
         raise ValueError(f"unknown fault {name!r}; one of {NAMES}")

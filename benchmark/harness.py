@@ -1,5 +1,6 @@
 """One run of one cell: set-up, the measured window, the traced
-sub-window, the readers, the comparison with the plain reference.
+sub-window, the readers, the comparison with the plain reference (the
+judge's own checks, then those the cell brings in ``reference/checks/``).
 
 The window is closed-loop, as the ``slam`` command replays a recorded
 sequence: sweep i + 1 is handed over when frame i has returned.  A
@@ -226,6 +227,9 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
     cell = manifest.cell(cell_name)
     workload = manifest.workload_file(cell)
     cfg = build_config(manifest.config_file(cell))
+    # the checks the cell brings: a limit without one ends the run here
+    further = {name: manifest.check(name) for name in workload["limits"]
+               if name not in judge.BUILTIN}
     run = Run(cell, workload, cfg)
     stream = SweepStream(workload["traffic"], seed, device)
     prog = Program(cfg, stream, seed, device)
@@ -246,6 +250,9 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
     if fault is not None:
         import faults
         faults.plant(fault, prog)
+    for check in further.values():
+        if hasattr(check, "tap"):
+            check.tap(prog)
 
     # the window; with ``trace``, its first frames profiled
     profiler = None
@@ -284,6 +291,8 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
           f"{run.window_s:.3f} s", file=sys.stderr)
     # what the window produced, then the program's state freed
     observed = judge.observe(prog, run, stream)
+    observed_further = {name: check.observe(prog, run, stream)
+                        for name, check in further.items()}
     prog.close()
     del prog
     gc.collect()
@@ -297,6 +306,11 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     checks = judge.compare(observed, stream, cfg, workload, control=control)
+    for name, check in further.items():
+        value = check.compare(observed_further[name], stream, cfg, workload,
+                              control)
+        checks.append(dict(name=name, value=float(value),
+                           limit=workload["limits"][name]))
     correct = all(c["value"] <= c["limit"] for c in checks
                   if c["limit"] is not None) and all(
         math.isfinite(c["value"]) for c in checks)

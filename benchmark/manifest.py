@@ -4,8 +4,10 @@ A cell ``<c>`` is an entry of ``workloads``; its traffic mix, window and
 correctness limits sit in ``workloads/<c>.json``, its configuration in
 the file the ``configs`` entry names (``configs/<config>.json``), and
 each metric's reader in ``metrics/<metric>.py``, a module with
-``read(run) -> float | None``.  Adding a cell, a configuration or a
-metric adds files and entries; no file here changes.
+``read(run) -> float | None``, and each limit that the judge does not
+compute itself in ``reference/checks/<limit>.py``.  Adding a cell, a
+configuration, a metric or a check adds files and entries; no file here
+changes.
 """
 from __future__ import annotations
 
@@ -57,9 +59,25 @@ class Manifest:
 
     def reader(self, metric: dict):
         """The ``read`` function of ``metrics/<name>.py``."""
-        path = self.bench_dir / "metrics" / f"{metric['name']}.py"
-        spec = importlib.util.spec_from_file_location(
-            f"bench_metric_{metric['name'].replace('.', '_')}", path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _load(self.bench_dir / "metrics" / f"{metric['name']}.py",
+                     "bench_metric_" + metric["name"]).read
+
+    def check(self, name: str):
+        """The module of ``reference/checks/<name>.py``: ``tap(prog)``
+        (optional: called once set-up has ended, before the window),
+        ``observe(prog, run, stream) -> dict`` (after the window, before
+        the program is freed) and ``compare(obs, stream, cfg, workload,
+        control) -> float``.  A name without its file raises."""
+        path = self.bench_dir / "reference" / "checks" / f"{name}.py"
+        if not NAME.match(name) or not path.is_file():
+            raise KeyError(f"limit {name!r}: no check of the judge's own "
+                           f"and no reference/checks/{name}.py")
+        return _load(path, "bench_check_" + name)
+
+
+def _load(path: Path, module_name: str):
+    spec = importlib.util.spec_from_file_location(
+        module_name.replace(".", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module

@@ -37,6 +37,10 @@ With ``control`` the TF32 reference takes the program's place in the
 two numbers it can stand in for (range_mismatch, render_mismatch): it
 is the lower precision a later change might be tempted by, and it has to
 fail.
+
+A limit of ``workloads/<cell>.json`` that is none of BUILTIN is a check
+that the cell brings: ``reference/checks/<name>.py`` (the harness loads
+it; ``manifest.Manifest.check``).
 """
 from __future__ import annotations
 
@@ -47,6 +51,8 @@ from traffic.canyon import stream_seed
 from . import range_image as ri
 from . import raster
 
+BUILTIN = ("range_mismatch", "render_mismatch", "map_hole",
+           "map_normal_deg")
 N_SAMPLED_FRAMES = 8
 N_SAMPLED_KEYFRAMES = 6
 ALPHA_TOL = 1e-4

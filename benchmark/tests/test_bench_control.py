@@ -1,10 +1,12 @@
 """The comparison that decides ``correct`` fails its control (the TF32
 reference in the program's place) and each fault that a cell can have,
 with the harness's look for a card skipped and the rest of a run driven
-on the CPU at a tiny size.  The control at a cell's own size runs on the
-card (``cuda`` marker), and so does ``half_batch``: at the tiny size the
-optimizer's few iterations leave the trained half of the view barely
-apart from the other."""
+on the CPU at a tiny size: the mapping faults on the tiny ncd-recon
+cell, the tracking faults on the tiny tracking cell, which brings its
+own checks.  The control at a cell's own size runs on the card (``cuda``
+marker), and so does ``half_batch``: at the tiny size the optimizer's
+few iterations leave the trained half of the view barely apart from the
+other."""
 import json
 import subprocess
 import sys
@@ -14,7 +16,7 @@ import torch
 
 import tiny
 from faults import NAMES
-from manifest import HERE
+from manifest import HERE, Manifest
 
 
 def test_sound_run_is_correct(tmp_path):
@@ -28,12 +30,70 @@ def test_control_is_not_correct(tmp_path):
 
 
 CARD_ONLY = ("half_batch",)
+TRACKING = ("track_frozen", "track_short")
 
 
-@pytest.mark.parametrize("fault", [f for f in NAMES if f not in CARD_ONLY])
+@pytest.mark.parametrize("fault", [f for f in NAMES
+                                   if f not in CARD_ONLY + TRACKING])
 def test_fault_is_not_correct(tmp_path, fault):
     res, checks = tiny.run(tiny.make(tmp_path), fault=fault, seconds=3.0)
     assert res["correct"] is False, checks
+
+
+# the tiny ncd-recon cell's checks (float.hex) with a clock that reads
+# 0.05 s more at every call (11 window frames), seed 5, two threads, as
+# the harness gave them before a cell could bring checks of its own
+BEFORE = {"range_mismatch": "0x0.0p+0", "render_mismatch": "0x0.0p+0",
+          "map_hole": "0x1.86c7607f99eb4p-3",
+          "map_normal_deg": "0x1.29b3c80b0c4c7p+4"}
+
+
+def test_judges_own_checks_alone_and_as_before(tmp_path, monkeypatch):
+    """A cell that names only the judge's four checks loads no check of
+    its own (so installs no tap) and reads the four as before."""
+    def no_check(self, name):
+        raise AssertionError(f"check {name} loaded")
+    monkeypatch.setattr(Manifest, "check", no_check)
+    res, checks = tiny.run(tiny.make(tmp_path), seed=5, seconds=1.0,
+                           tick=0.05)
+    assert res["attempted"] == 11
+    assert {c["name"]: c["value"].hex() for c in checks} == BEFORE
+
+
+def test_a_limit_without_a_check_ends_the_run(tmp_path):
+    path = tiny.make(tmp_path)
+    cell = path.parent / "benchmark" / "workloads" / "tiny.cell.json"
+    wl = json.loads(cell.read_text())
+    wl["limits"]["no_such_check"] = 1.0
+    cell.write_text(json.dumps(wl))
+    with pytest.raises(KeyError, match="no_such_check"):
+        tiny.run(path)
+
+
+@pytest.fixture(scope="module")
+def tracking(tmp_path_factory):
+    return tiny.make(tmp_path_factory.mktemp("tracking"), tracking=True)
+
+
+def test_tracking_cell_is_correct(tracking):
+    res, checks = tiny.run(tracking, **tiny.TRACK_WINDOW)
+    assert res["correct"] is True, checks
+    assert [c["name"] for c in checks] == [
+        "range_mismatch", "render_mismatch", "map_hole", "map_normal_deg",
+        "pose_rpe_m", "track_gap_m"]
+
+
+@pytest.mark.parametrize("how, check, seconds", [
+    ("control", "render_mismatch", 0.8),
+    ("track_short", "track_gap_m", 1.6),
+    ("track_frozen", "pose_rpe_m", 3.2)])
+def test_tracking_cell_fails_its_checks(tracking, how, check, seconds):
+    control = how == "control"
+    res, checks = tiny.run(tracking, seconds=seconds, tick=0.05,
+                           control=control, fault=None if control else how)
+    value = {c["name"]: c["value"] for c in checks}[check]
+    assert value > tiny.TRACK_LIMITS[check], checks
+    assert res["correct"] is False
 
 
 @pytest.fixture

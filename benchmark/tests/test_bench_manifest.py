@@ -4,7 +4,6 @@ import json
 import re
 
 import pytest
-import yaml
 
 from manifest import HERE, NAME, UNIT, Manifest
 import tiny
@@ -92,27 +91,11 @@ def test_files_found_by_name():
     assert all(f.startswith("benchmark/") for f in files)
 
 
-def _merged_yaml(path):
-    data = yaml.safe_load(path.read_text())
-    parent = data.pop("inherit_from", None)
-    if parent is None:
-        return data
-    base = _merged_yaml(CHECKOUT / parent)
-
-    def merge(a, b):
-        out = dict(a)
-        for k, v in b.items():
-            out[k] = (merge(out[k], v) if isinstance(v, dict)
-                      and isinstance(out.get(k), dict) else v)
-        return out
-    return merge(base, data)
-
-
 @pytest.mark.parametrize("entry", BENCHMARK["configs"],
                          ids=lambda c: c["name"])
 def test_config_is_the_shipped_yaml_but_reduced(entry):
     cf = json.loads((CHECKOUT / entry["file"]).read_text())
-    shipped = _merged_yaml(CHECKOUT / cf["yaml"].split()[0])
+    shipped = tiny.merged_yaml(CHECKOUT / cf["yaml"].split()[0])
     run = cf["config"]
     assert sorted(entry["reduced"]) == sorted(cf["reduced"])
     for key in set(shipped) | set(run):

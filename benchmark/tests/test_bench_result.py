@@ -62,11 +62,14 @@ def test_no_jax_in_what_a_run_loads():
         "import sys; sys.path[:0] = [%r, %r]\n"
         "import run, harness, manifest, tracing, faults\n"
         "import reference.judge, reference.raster, reference.range_image\n"
+        "import reference.gauss_newton\n"
         "import counts.raster, counts.peaks, traffic.canyon\n"
         "import splatloam_tpu_torch.slam, splatloam_tpu_torch.preprocessing\n"
         "m = manifest.Manifest(manifest.HERE.parent / 'BENCHMARK.json')\n"
         "for x in m.data['end_to_end'] + m.data['per_layer']:\n"
         "    m.reader(x)\n"
+        "for p in (manifest.HERE / 'reference' / 'checks').glob('*.py'):\n"
+        "    m.check(p.stem)\n"
         "print(run.forbidden_modules())\n"
         "print(sorted({k.split('.')[0] for k in sys.modules}))\n"
         % (str(HERE), str(HERE.parent)))
@@ -79,7 +82,7 @@ def test_no_jax_in_what_a_run_loads():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for f in (HERE / "reference").glob("*.py"):
+    for f in (HERE / "reference").rglob("*.py"):
         text = f.read_text()
         assert "splatloam_tpu" not in text.replace("splatloam_tpu_torch/",
                                                    ""), f
