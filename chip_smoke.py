@@ -4213,7 +4213,8 @@ def graphs_update(cfg, model, kf, scatter: str, views: int):
     cfg_m.mapping.views_per_iteration = views
     progs = MapperPrograms(cfg_m, H, W, model.capacity)
     draw = Mapper(cfg_m, device=model.device, seed=SEED)
-    idx = draw._draw_keyframes(kf.probs, progs.n_blocks())
+    idx = draw._draw_keyframes(kf.probs, progs.n_blocks(),
+                               len(model.keyframes) - 1)
     what = f"{scatter}" + (f", views_per_iteration {views}"
                            if views > 1 else "")
     runs, counts, ms = {}, {}, {}
@@ -4333,7 +4334,7 @@ def graphs_gn(dev, slam) -> None:
 
     u1, ms_u = solve(lambda: gauss_newton_align(*inputs, h, w, **kw))
     u2, _ = solve(lambda: gauss_newton_align(*inputs, h, w, **kw), 1)
-    c, ms_c = solve(lambda: prog(*inputs))
+    c, ms_c = solve(lambda: prog(*inputs)[:2])
     gate = spread_gate({"T": u1[None, :16], "fitness": u1[None, 16:]},
                        {"T": u2[None, :16], "fitness": u2[None, 16:]},
                        {"T": c[None, :16], "fitness": c[None, 16:]})

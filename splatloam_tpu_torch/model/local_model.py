@@ -1,8 +1,9 @@
 """LocalModel: one bounded submap = surfel pool + keyframes + origin pose.
 
-Counterpart of splatloam_tpu/model/local_model.py: capacity doubling for
-the fixed-capacity surfel pool and a keyframe stack on the device, padded
-to bucket multiples.
+Counterpart of splatloam_tpu/model/local_model.py: capacity growth for
+the fixed-capacity surfel pool (doubling, as there, except for a submap
+that never closes, which grows in fixed steps) and a keyframe stack on the
+device, padded to bucket multiples.
 """
 from __future__ import annotations
 
@@ -16,6 +17,12 @@ from .frame import Frame
 from . import surfels as S
 
 logger = get_logger("local_model")
+
+# a submap that never closes grows by room for this many densify updates
+UNBOUNDED_STEP_UPDATES = 8
+# and by a multiple of this many slots, so that a capacity divisible by a
+# power-of-two mesh axis stays divisible, as doubling keeps it
+STEP_ALIGN = 1024
 
 
 class LocalModel:
@@ -85,23 +92,42 @@ class LocalModel:
         return ret
 
     def ensure_free_slots(self, needed: int) -> None:
-        """Double capacity until `needed` free slots exist."""
+        """Grow capacity until `needed` free slots exist.
+
+        A submap that closes at a threshold doubles its pool (capped at
+        twice the surfel threshold).  One that never closes grows in
+        fixed steps, room for ``UNBOUNDED_STEP_UPDATES`` updates at
+        densify's most (`needed`): the mapper's captured blocks, their
+        memory and each iteration's surfel side are sized by the
+        capacity, and doubling a pool that grows without end doubles them
+        all at a point set by the distance driven; a fixed step keeps
+        every growth the same size."""
         free = self.capacity - self.no_gaussians
         if free >= needed:
             return
-        new_cap = self.capacity
-        while new_cap - self.no_gaussians < needed:
-            new_cap *= 2
-        max_cap = self.cfg.mapping.lmodel_threshold_ngaussians
-        if max_cap and max_cap > 0:
-            # a bit of headroom over the rollover threshold is fine; cap
-            # runaway growth at 2x the threshold
-            new_cap = min(new_cap, max(2 * int(max_cap), self.capacity))
+        if self._never_closes():
+            new_cap = self.capacity + STEP_ALIGN * -(
+                -UNBOUNDED_STEP_UPDATES * needed // STEP_ALIGN)
+        else:
+            new_cap = self.capacity
+            while new_cap - self.no_gaussians < needed:
+                new_cap *= 2
+            max_cap = self.cfg.mapping.lmodel_threshold_ngaussians
+            if max_cap and max_cap > 0:
+                # a bit of headroom over the rollover threshold is fine;
+                # cap runaway growth at 2x the threshold
+                new_cap = min(new_cap, max(2 * int(max_cap), self.capacity))
         if new_cap > self.capacity:
             logger.info(f"growing surfel capacity {self.capacity} -> "
                         f"{new_cap}")
             self.surfels, self.adam = S.grow_capacity(
                 self.surfels, self.adam, new_cap)
+
+    def _never_closes(self) -> bool:
+        """Whether no threshold ever rolls this submap over."""
+        mc = self.cfg.mapping
+        return not any(t and t > 0 for t in (mc.lmodel_threshold_ngaussians,
+                                             mc.lmodel_threshold_nkeyframes))
 
     @property
     def capacity(self) -> int:

@@ -136,6 +136,8 @@ class Profiler:
         self.enabled = enabled
         self.stats: dict[str, PhaseStats] = defaultdict(PhaseStats)
         self.counters: dict[str, float] = defaultdict(float)
+        self.increments: dict[str, int] = defaultdict(int)
+        self.last_count: dict[str, float] = defaultdict(float)
         self.frame = -1
         self._opened = 0                # spans opened: the next one's id
         self._open: list[int] = []      # ids of the open spans, inner last
@@ -155,6 +157,8 @@ class Profiler:
 
     def count(self, name: str, value: float = 1.0) -> None:
         self.counters[name] += value
+        self.increments[name] += 1
+        self.last_count[name] = value
         self._counts.put(name, self.frame, value)
 
     def spans(self) -> list[Span]:
@@ -174,8 +178,14 @@ class Profiler:
             ema = 0.0 if s.ema is None else s.ema * 1e3
             lines.append(f"{name:<22}{s.count:>8}{s.total:>10.2f}"
                          f"{ema:>10.1f}{s.last * 1e3:>10.1f}")
+        if self.counters:
+            lines.append(f"{'counter':<22}{'count':>8}{'total':>10}"
+                         f"{'mean':>10}{'last':>10}")
         for name in sorted(self.counters):
-            lines.append(f"{name:<22}{self.counters[name]:>18.0f}")
+            n, total = self.increments[name], self.counters[name]
+            lines.append(f"{name:<22}{n:>8}{total:>10.0f}"
+                         f"{total / max(n, 1):>10.2f}"
+                         f"{self.last_count[name]:>10.0f}")
         return "\n".join(lines)
 
 

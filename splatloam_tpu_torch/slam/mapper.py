@@ -9,7 +9,9 @@ Counterpart of splatloam_tpu/slam/mapper.py:
   * optimize: a loop over rebin blocks of Adam iterations, each block on
     one keyframe drawn from the geometric replay distribution (or
     ``mapping.views_per_iteration`` keyframes drawn with replacement,
-    rendered in one batched pass and their losses averaged), with the
+    rendered in one batched pass and their losses averaged; each update
+    counts the submap's keyframes in ``map.keyframes`` and the draws of
+    its newest keyframe in ``map.replay.newest``), with the
     paper's losses (Eq 15-17) and EMA early stopping.  The image losses
     come from ``api.render_loss``: on CUDA the forward's output goes
     straight into K11, which writes the losses and their cotangent for
@@ -70,16 +72,19 @@ class KeyframeBatch(NamedTuple):
 
 def sample_geometric_probs(n: int, last_kf_prob: float | None,
                            kf_cap: int) -> np.ndarray:
-    """Keyframe replay distribution, padded to kf_cap: P(kf i)
-    proportional to (1-p)^(i-1) * p over the insertion-ordered list;
+    """Keyframe replay distribution, padded to kf_cap: over the
+    insertion-ordered list of n keyframes, P(kf i) proportional to
+    (1-p)^(n-i) * p, so that the newest keyframe (i = n) is drawn with
+    weight p and each older one with (1-p) times the next's, as upstream
+    favours the recent keyframes (the JAX package gives the oldest p);
     uniform when p is None/negative; delta when one keyframe."""
     if n == 1:
         probs = np.array([1.0])
     elif last_kf_prob is None or last_kf_prob < 0.0:
         probs = np.full((n,), 1.0 / n)
     else:
-        i = np.arange(1, n + 1, dtype=np.float64)
-        probs = (1.0 - last_kf_prob) ** (i - 1) * last_kf_prob
+        age = np.arange(n - 1, -1, -1, dtype=np.float64)
+        probs = (1.0 - last_kf_prob) ** age * last_kf_prob
         probs /= probs.sum()
     out = np.zeros((kf_cap,), np.float32)
     out[:n] = probs
@@ -704,16 +709,29 @@ class Mapper:
         return self._from_root(-torch.log(-torch.log(torch.clamp(u,
                                                                 min=tiny))))
 
-    def _draw_keyframes(self, probs: np.ndarray, n_blocks: int):
+    def _draw_keyframes(self, probs: np.ndarray, n_blocks: int,
+                        newest: int):
         """Per-block keyframe indices: [n_blocks], or [n_blocks, views]
         with views_per_iteration > 1 (drawn with replacement; the sharded
-        programs render one view per iteration, as the JAX package's)."""
+        programs render one view per iteration, as the JAX package's).
+
+        The first block (its first view) is the newest keyframe
+        (``newest``), the one the update densified from; the others are
+        drawn from ``probs``.
+        Upstream draws a keyframe every iteration, so an update reaches
+        its newest keyframe unless the submap holds hundreds; one draw a
+        block of ``rebin_every`` iterations misses it in most updates of
+        a large submap (13 blocks of uniform replay over 50 keyframes: 77%
+        of them), and then its new surfels, and the target the tracker
+        renders there, stay as densify left them: on a drive the tracker
+        loses the sweeps."""
         views = max(1, int(self.cfg.mapping.views_per_iteration or 1))
         if self.mesh is not None:
             views = 1
         p = torch.as_tensor(probs, dtype=torch.float32, device=self.device)
         idx = self._from_root(torch.multinomial(
             p, n_blocks * views, replacement=True, generator=self.generator))
+        idx[0] = newest
         return idx if views == 1 else idx.reshape(n_blocks, views)
 
     def _stack_keyframes(self, kf_cap: int) -> KeyframeBatch:
@@ -823,13 +841,20 @@ class Mapper:
             kf = self._stack_keyframes(kf_cap)
         k11 = kernels.KERNELS["K11_image_loss"]
         k11_before = k11.launches
+        newest = len(model.keyframes) - 1
         with prof.phase("map.optimize"):
             with prof.phase("map.optimize.draw"):
                 kf_indices = self._draw_keyframes(kf.probs,
-                                                  progs.n_blocks())
+                                                  progs.n_blocks(), newest)
+                # the draws are on the device: counted there, read with ema
+                n_newest = torch.sum(kf_indices == newest)
             surf, adam, ema, n_iters = optimize(surf, adam, kf, kf_indices)
             with prof.phase("map.optimize.drain"):
-                ema_value = float(ema)   # waits for the device
+                # waits for the device
+                ema_value, n_newest = torch.stack(
+                    [ema.float(), n_newest.float()]).tolist()
+        prof.count("map.keyframes", newest + 1)
+        prof.count("map.replay.newest", n_newest)
         # the update's image-loss launches, replays' included
         prof.count("kernel.K11_image_loss", k11.launches - k11_before)
         logger.debug(f"optimize done after {n_iters} iters, "

@@ -20,8 +20,14 @@ loop as a captured CUDA graph (graphs.CapturedProgram, one per image size
 and solver setting), the counterpart of the JAX package's jitted
 ``while_loop``: it copies the guess, the source and the target into the
 graph's static inputs and replays it.  The pose algebra of the caller
-stays on the host in float64; ``align`` uploads one float32 4x4 and reads
-T and the fitness back once.
+stays on the host in float64; ``align`` uploads one float64 4x4 and reads
+T, the fitness and the iterations run back once.
+
+Spans and counters: ``track.target`` around ``set_target``, closed, with
+the profiler on, by one stream synchronize so that it holds the target
+render's device time (a keyframe's, not a frame's); ``track.gn.iters`` counts, at each solve, the
+iterations until the tolerance froze T (``num_iterations`` when it never
+did), read in ``align``'s one copy.
 """
 from __future__ import annotations
 
@@ -74,7 +80,7 @@ def _corr_at(i: int, max_corr_dist: float, corr_factor_init: float,
     return float(f32(max_corr_dist) * f32(factor))
 
 
-def gauss_newton_align(T_init,
+def gauss_newton_solve(T_init,
                        src_pts, src_valid,
                        tgt_depth, tgt_pts, tgt_normals, tgt_valid,
                        K,
@@ -89,8 +95,9 @@ def gauss_newton_align(T_init,
                        convergence_tol: float = 0.0,
                        lambda_range: float = 0.0):
     """Projective point-to-plane GN; all target images [H, W, ...], all
-    tensors on one device.  Returns (T [4, 4], fitness []) as tensors on
-    that device; nothing is read back to the host.
+    tensors on one device, solved in float64.  Returns (T [4, 4] float64,
+    fitness [], iterations []) as tensors on that device; nothing is read
+    back to the host.
 
     The correspondence gate starts at corr_factor_init * max_corr_dist and
     decays linearly to 1x over corr_decay_iters; T stops moving after the
@@ -98,14 +105,23 @@ def gauss_newton_align(T_init,
     (non-finite dx, or fewer than 6 correspondences) leaves T as it is and
     does not count as converged.  ``lambda_range > 0`` adds the range
     residual |T p_s| - rendered_range(pixel), Jacobian [q_hat, 0].
+    ``iterations`` (int32) counts the steps that moved T: up to and with
+    the one that met the tolerance, all ``num_iterations`` when none did.
     """
+    # the solve runs in float64 from a float64 guess: a frame far from its
+    # keyframe is ill conditioned along the street, where float32
+    # residuals, pixel associations or a rounded guess moved T by up to
+    # millimetres from the float64 solve
+    T_init, src_pts, tgt_depth, tgt_pts, tgt_normals, K = (
+        t.double() for t in (T_init, src_pts, tgt_depth, tgt_pts,
+                             tgt_normals, K))
     # flat single-index gathers
     tgt_n_flat = tgt_normals.reshape(-1, 3)
     tgt_p_flat = tgt_pts.reshape(-1, 3)
     tgt_v_flat = tgt_valid.reshape(-1)
     tgt_d_flat = tgt_depth.reshape(-1)
     dev = T_init.device
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    eye6 = torch.eye(6, dtype=torch.float64, device=dev)
 
     def residuals(T, corr_dist):
         q = src_pts @ T[:3, :3].T + T[:3, 3]
@@ -131,6 +147,7 @@ def gauss_newton_align(T_init,
 
     T = T_init
     active = torch.ones((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
     for i in range(num_iterations):
         corr = _corr_at(i, max_corr_dist, corr_factor_init, corr_decay_iters)
         r, ok, q, n, r_rng, ok_rng = residuals(T, corr)
@@ -159,11 +176,18 @@ def gauss_newton_align(T_init,
         # a failed solve must not read as converged: its |dx| is +inf
         dx_norm = torch.where(ok_solve, torch.linalg.norm(dx), float("inf"))
         T = torch.where(active, se3.exp_se3(dx) @ T, T)
+        iters = iters + active.to(torch.int32)
         if convergence_tol > 0.0:
             active = active & (dx_norm > convergence_tol)
     r, ok, _, _, _, _ = residuals(T, float(np.float32(max_corr_dist)))
     n_src = torch.clamp(torch.sum(src_valid), min=1)
     fitness = torch.sum(ok & (torch.abs(r) < inlier_threshold)) / n_src
+    return T, fitness, iters
+
+
+def gauss_newton_align(*args, **kwargs):
+    """``gauss_newton_solve``'s (T, fitness), without the iterations."""
+    T, fitness, _ = gauss_newton_solve(*args, **kwargs)
     return T, fitness
 
 
@@ -201,15 +225,21 @@ class AlignerGN:
                             with_dist=False)
 
     def set_target(self, frame: Frame) -> None:
-        """Render the model at the keyframe view."""
+        """Render the model at the keyframe view; with the profiler on,
+        the ``track.target`` span ends when the render has run on the
+        device."""
         assert self.model is not None
         cam = frame.camera_in_model()
         surf = self.model.surfels
-        depth, pts, normals, valid = _prepare_target(
-            surf.params.xyz, surf.scaling, surf.rotation, surf.opacity,
-            cam.T_cw, cam.K, self._params_for(cam),
-            float(self.cfg.preprocessing.depth_min),
-            float(self.cfg.opt.depth_ratio))
+        prof = get_profiler()
+        with prof.phase("track.target"):
+            depth, pts, normals, valid = _prepare_target(
+                surf.params.xyz, surf.scaling, surf.rotation, surf.opacity,
+                cam.T_cw, cam.K, self._params_for(cam),
+                float(self.cfg.preprocessing.depth_min),
+                float(self.cfg.opt.depth_ratio))
+            if prof.enabled and self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         self._target = (depth, pts, normals, valid, cam.K,
                         cam.height, cam.width)
 
@@ -241,7 +271,7 @@ class AlignerGN:
             static = [t.clone() for t in inputs]
             self._graphs[sig] = graphs.CapturedProgram(
                 f"gauss_newton_align {sig}",
-                lambda: gauss_newton_align(*static, h, w, **kw), static,
+                lambda: gauss_newton_solve(*static, h, w, **kw), static,
                 span="track.align")
         return self._graphs[sig]
 
@@ -252,20 +282,23 @@ class AlignerGN:
 
     def align(self, iguess: np.ndarray) -> np.ndarray:
         """float64 [4, 4] initial guess -> float64 [4, 4] keyframe_T_frame;
-        one upload of the guess and one read of (T, fitness).  On CUDA the
-        solve is the captured graph's replay."""
+        one upload of the guess and one read of (T, fitness, iterations),
+        the last counted as ``track.gn.iters``.  On CUDA the solve is the
+        captured graph's replay."""
         assert self._target is not None and self._source is not None
         depth, pts, normals, valid, K, h, w = self._target
-        inputs = (torch.as_tensor(np.asarray(iguess, np.float32),
+        inputs = (torch.as_tensor(np.asarray(iguess, np.float64),
                                   device=self.device),
                   *self._source, depth, pts, normals, valid, K)
         if self.device.type == "cuda":
-            T, fitness = self._program(inputs, h, w)(*inputs)
+            T, fitness, iters = self._program(inputs, h, w)(*inputs)
         else:
-            T, fitness = gauss_newton_align(*inputs, h, w,
-                                            **self.solver_settings())
-        out = torch.cat([T.reshape(-1), fitness.reshape(1)]).cpu().numpy()
+            T, fitness, iters = gauss_newton_solve(*inputs, h, w,
+                                                   **self.solver_settings())
+        out = torch.cat([T.reshape(-1), fitness.reshape(1).to(T.dtype),
+                         iters.reshape(1).to(T.dtype)]).cpu().numpy()
         self.reg_fitness = float(out[16])
+        get_profiler().count("track.gn.iters", float(out[17]))
         return out[:16].reshape(4, 4).astype(np.float64)
 
     def fitness(self) -> float:

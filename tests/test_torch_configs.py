@@ -153,7 +153,7 @@ def _hand_jax_draws(port_mapper):
     def gumbel(n):
         return torch.tensor(np.asarray(jax.random.gumbel(next_key(), (n,))))
 
-    def draw(probs, n_blocks):
+    def draw(probs, n_blocks, newest):
         n = int((probs > 0).sum())
         lp = np.full(probs.shape, -np.inf, np.float32)
         lp[:n] = np.log(np.maximum(probs[:n], 1e-30))

@@ -501,7 +501,7 @@ def test_gn_program_body_matches_jax(name, monkeypatch):
     guess[:3, 3] += [0.05, -0.02, 0.0]
     for T0 in (arrays[0], guess):
         prog.load(torch.tensor(T0), *inputs[1:])
-        pT, pfit = prog.body()
+        pT, pfit, _ = prog.body()
         jT, jfit = jtracker.gauss_newton_align(
             jnp.asarray(T0), *(jnp.asarray(a) for a in arrays[1:]),
             height=TH, width=TW, **opts)
@@ -731,7 +731,7 @@ class TestOnCard:
         ref_T, ref_fit = tracker.gauss_newton_align(*inputs, TH, TW, **opts)
         prog = aligner._program(inputs, TH, TW)
         for _ in range(3):
-            T, fit = prog(*inputs)
+            T, fit, _ = prog(*inputs)
             np.testing.assert_allclose(T.cpu().numpy(), ref_T.cpu().numpy(),
                                        atol=1e-6)
             assert abs(float(fit) - float(ref_fit)) <= 1e-6

@@ -309,10 +309,14 @@ def test_update_model_slice(frames):
     def gumbel(n):
         return torch.tensor(np.asarray(jax.random.gumbel(next_key(), (n,))))
 
-    def draw(probs, n_blocks):
+    def draw(probs, n_blocks, newest):
+        # the JAX mapper draws from its own replay weights, which favour
+        # the oldest keyframe where the port's favour the newest
         n = int((probs > 0).sum())
+        jprobs = jmapper.sample_geometric_probs(
+            n, pcfg.mapping.prob_view_last_keyframe, len(probs))
         lp = np.full(probs.shape, -np.inf, np.float32)
-        lp[:n] = np.log(np.maximum(probs[:n], 1e-30))
+        lp[:n] = np.log(np.maximum(jprobs[:n], 1e-30))
         keys = jax.random.split(next_key(), n_blocks)
         return torch.tensor([int(jax.random.categorical(k, jnp.asarray(lp)))
                              for k in keys])

@@ -129,7 +129,7 @@ def test_mapper_draws_views_per_block():
     _, pcfg = _cfgs(views_per_iteration=3)
     pm = mapper.Mapper(pcfg, device="cpu")
     probs = mapper.sample_geometric_probs(2, 0.4, 8)
-    idx = pm._draw_keyframes(probs, 5)
+    idx = pm._draw_keyframes(probs, 5, 1)
     assert tuple(idx.shape) == (5, 3)
     assert set(idx.reshape(-1).tolist()) <= {0, 1}
 

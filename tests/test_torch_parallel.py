@@ -290,7 +290,7 @@ def _rank_main(rank: int, world: int, port: int, outdir: str) -> None:
         _update_dict("cuda"), parallel={"data": 2, "model": 2}))
     pm = mapper.Mapper(cfg, device="cpu", seed=rank)
     draw = torch.cat([pm._gumbel(64),
-                      pm._draw_keyframes(probs, 8).to(torch.float32)])
+                      pm._draw_keyframes(probs, 8, 1).to(torch.float32)])
     res["draws"] = C.all_gather_raw(draw[None], mesh.group("world")).numpy()
 
     # --- three frames of SLAM.process at (2, 2), tracked by gsaligner ---

@@ -106,7 +106,8 @@ def _optimize_inputs(slam):
     bucket = slam.cfg.compute.keyframe_capacity
     kf_cap = -(-len(model.keyframes) // bucket) * bucket
     kf = mapper._stack_keyframes(kf_cap)
-    idx = mapper._draw_keyframes(kf.probs, progs.n_blocks())
+    idx = mapper._draw_keyframes(kf.probs, progs.n_blocks(),
+                                 len(model.keyframes) - 1)
     return progs, model, kf, idx
 
 
@@ -162,7 +163,8 @@ def test_counters_are_tagged_by_frame(run):
     counts = prof.counts()
     assert [(c.name, c.frame) for c in counts] == [
         (name, f) for f in KEYFRAMES
-        for name in ("map.densify.added", "kernel.K11_image_loss",
+        for name in ("map.densify.added", "map.keyframes",
+                     "map.replay.newest", "kernel.K11_image_loss",
                      "map.prune.removed")]
     model = run["slam"].local_models[-1]
     added = sum(c.value for c in counts if c.name == "map.densify.added")
