@@ -35,14 +35,16 @@ CHANNEL_BYTES = 8 * 4
 def view_weights(n: int, last_kf_prob) -> np.ndarray:
     """The mapper's replay distribution over a submap's n keyframes in
     insertion order, as the configuration's ``prob_view_last_keyframe``
-    states it: proportional to (1 - p)^(i - 1) p, uniform when p is
-    unset or negative, all on the one keyframe when n is 1."""
+    states it: keyframe i (1 the oldest, n the newest) proportional to
+    (1 - p)^(n - i) p, so the newest weighs p and each older one 1 - p
+    times the next; uniform when p is unset or negative, all on the one
+    keyframe when n is 1."""
     if n == 1:
         return np.ones(1)
     if last_kf_prob is None or last_kf_prob < 0:
         return np.full(n, 1.0 / n)
-    i = np.arange(1, n + 1, dtype=np.float64)
-    p = (1.0 - last_kf_prob) ** (i - 1) * last_kf_prob
+    age = np.arange(n - 1, -1, -1, dtype=np.float64)
+    p = (1.0 - last_kf_prob) ** age * last_kf_prob
     return p / p.sum()
 
 

@@ -6,9 +6,14 @@ The window is closed-loop, as the ``slam`` command replays a recorded
 sequence: sweep i + 1 is handed over when frame i has returned.  A
 frame's time runs from the hand-over of its sweep (a host float32 array)
 to ``Preprocessor`` until ``SLAM.process`` has returned and the device is
-synchronised; making the sweep lies outside it.  The window is the sum of
-the frames' times: it closes at the first frame that brings it to
-``--seconds``.
+synchronised; making the sweep lies outside it.  The window is the first
+``window_frames`` frames after set-up (``workloads/<cell>.json``): the
+same frames of the same stream on every program, so that the peak
+memory and the comparison read the same work on a faster program as on
+a slower one.  ``--seconds`` is a guard: a window whose frames' times
+reach it before ``window_frames`` frames closes there, and the result's
+``window`` records how many frames it holds and that the guard cut it;
+the metrics are read over those frames.
 
 With ``--trace 1`` the program's phases are forwarded into a
 ``torch.profiler`` trace of the window's first frames, up to and with
@@ -266,8 +271,9 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
         profiler.start()
         window_range = torch.profiler.record_function("bench.window")
         window_range.__enter__()
+    n_frames = int(workload["window_frames"])
     elapsed_ms = 0.0
-    while elapsed_ms < seconds * 1e3:
+    while len(run.frames) < n_frames and elapsed_ms < seconds * 1e3:
         rec = prog.frame(traced=profiler is not None)
         run.frames.append(rec)
         elapsed_ms += rec["ms"]
@@ -275,6 +281,7 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
             run.updates.append(_keep_update(prog))
         if profiler is not None and (
                 len(run.updates) >= workload["trace_updates"]
+                or len(run.frames) >= n_frames
                 or elapsed_ms >= seconds * 1e3):
             window_range.__exit__(None, None, None)
             profiler.stop()
@@ -287,8 +294,12 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
         run.memory_peak_bytes = int(torch.cuda.max_memory_allocated(device))
 
     n_up = sum(f["updated"] for f in run.frames)
-    print(f"window: {len(run.frames)} frames, {n_up} keyframe updates, "
-          f"{run.window_s:.3f} s", file=sys.stderr)
+    window = {"frames": len(run.frames), "window_frames": n_frames,
+              "guard_cut": len(run.frames) < n_frames,
+              "seconds": run.window_s, "updates": n_up,
+              "last_index": run.frames[-1]["index"] if run.frames else None,
+              **pool_state(prog)}
+    print(f"window: {window}", file=sys.stderr)
     # what the window produced, then the program's state freed
     observed = judge.observe(prog, run, stream)
     observed_further = {name: check.observe(prog, run, stream)
@@ -319,9 +330,18 @@ def run_cell(manifest, cell_name: str, seed: int, seconds: float,
               "device": device_record(device, run)}
     if trace:
         result["breakdown"] = tracing.breakdown(run)
+    result["window"] = window
     result["checks"] = {c["name"]: {"value": c["value"],
                                     "limit": c["limit"]} for c in checks}
     return result, checks
+
+
+def pool_state(prog: Program) -> dict:
+    """The newest submap's pool at the window's end: its capacity in
+    slots, its active surfels, and the number of submaps."""
+    lm = prog.slam.local_models[-1]
+    return {"submaps": len(prog.slam.local_models),
+            "capacity": int(lm.capacity), "surfels": lm.no_gaussians}
 
 
 def device_record(device, run: Run) -> dict:

@@ -31,21 +31,28 @@ def test_control_is_not_correct(tmp_path):
 
 CARD_ONLY = ("half_batch",)
 TRACKING = ("track_frozen", "track_short")
+# a frozen mapper or optimizer shows only after some updates: their
+# windows as a guard of 3 s alone gave them on the CPU (126-180 frames;
+# a frozen update takes a tenth of a second here); the other faults'
+# are the tiny cell's own
+FAULT_FRAMES = {"map_frozen": 120, "optimize_frozen": 120}
 
 
 @pytest.mark.parametrize("fault", [f for f in NAMES
                                    if f not in CARD_ONLY + TRACKING])
 def test_fault_is_not_correct(tmp_path, fault):
-    res, checks = tiny.run(tiny.make(tmp_path), fault=fault, seconds=3.0)
+    res, checks = tiny.run(tiny.make(tmp_path), fault=fault,
+                           frames=FAULT_FRAMES.get(fault))
     assert res["correct"] is False, checks
 
 
-# the tiny ncd-recon cell's checks (float.hex) with a clock that reads
-# 0.05 s more at every call (11 window frames), seed 5, two threads, as
-# the harness gave them before a cell could bring checks of its own
+# the tiny ncd-recon cell's checks (float.hex) over a window of 11
+# frames, seed 5, two threads, as the harness gave them before a cell
+# could bring checks of its own, with the mapper's first block of each
+# update on the newest keyframe
 BEFORE = {"range_mismatch": "0x0.0p+0", "render_mismatch": "0x0.0p+0",
-          "map_hole": "0x1.86c7607f99eb4p-3",
-          "map_normal_deg": "0x1.29b3c80b0c4c7p+4"}
+          "map_hole": "0x1.753bd02647c68p-3",
+          "map_normal_deg": "0x1.28c1fb52d9762p+4"}
 
 
 def test_judges_own_checks_alone_and_as_before(tmp_path, monkeypatch):
@@ -54,8 +61,7 @@ def test_judges_own_checks_alone_and_as_before(tmp_path, monkeypatch):
     def no_check(self, name):
         raise AssertionError(f"check {name} loaded")
     monkeypatch.setattr(Manifest, "check", no_check)
-    res, checks = tiny.run(tiny.make(tmp_path), seed=5, seconds=1.0,
-                           tick=0.05)
+    res, checks = tiny.run(tiny.make(tmp_path), seed=5, frames=11)
     assert res["attempted"] == 11
     assert {c["name"]: c["value"].hex() for c in checks} == BEFORE
 
@@ -83,14 +89,14 @@ def test_tracking_cell_is_correct(tracking):
         "pose_rpe_m", "track_gap_m"]
 
 
-@pytest.mark.parametrize("how, check, seconds", [
-    ("control", "render_mismatch", 0.8),
-    ("track_short", "track_gap_m", 1.6),
-    ("track_frozen", "pose_rpe_m", 3.2)])
-def test_tracking_cell_fails_its_checks(tracking, how, check, seconds):
+@pytest.mark.parametrize("how, check, frames", [
+    ("control", "render_mismatch", 8),
+    ("track_short", "track_gap_m", 16),
+    ("track_frozen", "pose_rpe_m", 32)])
+def test_tracking_cell_fails_its_checks(tracking, how, check, frames):
     control = how == "control"
-    res, checks = tiny.run(tracking, seconds=seconds, tick=0.05,
-                           control=control, fault=None if control else how)
+    res, checks = tiny.run(tracking, frames=frames, control=control,
+                           fault=None if control else how)
     value = {c["name"]: c["value"] for c in checks}[check]
     assert value > tiny.TRACK_LIMITS[check], checks
     assert res["correct"] is False

@@ -66,7 +66,15 @@ def test_view_weights():
     np.testing.assert_allclose(counts.view_weights(1, 0.4), [1.0])
     np.testing.assert_allclose(counts.view_weights(4, None), [0.25] * 4)
     wts = counts.view_weights(3, 0.4)
-    np.testing.assert_allclose(wts, np.array([0.4, 0.24, 0.144]) / 0.784)
+    np.testing.assert_allclose(wts, np.array([0.144, 0.24, 0.4]) / 0.784)
+
+
+@pytest.mark.parametrize("n, p", [(1, 0.4), (4, None), (5, 0.3), (7, -1.0)])
+def test_view_weights_follow_the_mappers_draws(n, p):
+    """Newest-first, as the mapper draws its keyframes."""
+    from splatloam_tpu_torch.slam.mapper import sample_geometric_probs
+    np.testing.assert_allclose(counts.view_weights(n, p),
+                               sample_geometric_probs(n, p, n), rtol=1e-6)
 
 
 def test_expected_per_launch_weights_views_and_iterations():

@@ -84,7 +84,7 @@ def traced(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setattr(harness, "Run", Kept)
     try:
-        result, _ = tiny.run(path, seconds=2.2, tick=0.05, trace=True)
+        result, _ = tiny.run(path, frames=22, trace=True)
     finally:
         mp.undo()
     (run,) = runs

@@ -79,7 +79,9 @@ def test_files_found_by_name():
     man = Manifest(CHECKOUT / "BENCHMARK.json")
     for w in BENCHMARK["workloads"]:
         wl = man.workload_file(w)
-        assert {"traffic", "setup", "trace_updates", "limits"} <= set(wl)
+        assert {"traffic", "setup", "window_frames", "trace_updates",
+                "limits"} <= set(wl)
+        assert isinstance(wl["window_frames"], int) and wl["window_frames"] > 0
         cf = man.config_file(w)
         assert {"source", "yaml", "reduced", "assumed", "config"} <= set(cf)
     for m in BENCHMARK["end_to_end"] + BENCHMARK["per_layer"]:

@@ -17,7 +17,7 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 @pytest.mark.parametrize("trace", [False, True], ids=["trace0", "trace1"])
 def test_last_line_keys(tmp_path, trace):
     res, checks = tiny.run(tiny.make(tmp_path), trace=trace)
-    want = KEYS + (["breakdown"] if trace else []) + ["checks"]
+    want = KEYS + (["breakdown"] if trace else []) + ["window", "checks"]
     assert list(res) == want
     assert res["correct"] is True, checks
     assert res["attempted"] > 0 and res["failed"] == 0

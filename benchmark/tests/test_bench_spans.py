@@ -34,7 +34,7 @@ def traced(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setattr(harness, "Run", Kept)
     try:
-        result, _ = tiny.run(path, seconds=4.0, trace=True)
+        result, _ = tiny.run(path, frames=12, trace=True)
     finally:
         mp.undo()
     (run,) = runs

@@ -34,7 +34,10 @@ TINY_LIMITS = {"range_mismatch": 0.01, "render_mismatch": 0.01,
 TRACK_LIMITS = {"range_mismatch": 0.01, "render_mismatch": 0.06,
                 "pose_rpe_m": 2.0, "track_gap_m": 0.05}
 # a window of 32 frames: segments of 20 m (29 sweeps) fit in it
-TRACK_WINDOW = dict(seconds=3.2, tick=0.05)
+TRACK_WINDOW = dict(frames=32)
+# the tiny cells' window: the frames the first window update closes on
+# (a sound CPU run's keyframe update at 16x128 takes seconds)
+TINY_WINDOW_FRAMES = 6
 TRACKING_YAML = "configs/kitti/kitti-00-odom.yaml"
 KITTI_SENSOR = {"fov_deg": [-24.8, 2.0], "max_range_m": 50.0, "step_m": 0.7}
 
@@ -84,6 +87,7 @@ def make(tmp: Path, config: str = "ncd-recon", cell: str = "ncd-recon.walk",
     w = json.loads((BENCH / "workloads" / f"{cell}.json").read_text())
     w["traffic"].update(beams=hw[0], columns=hw[1])
     w["setup"]["max_frames"] = 40
+    w["window_frames"] = TINY_WINDOW_FRAMES
     w["limits"] = {k: TINY_LIMITS[k] for k in w["limits"]}
     if tracking:
         w["traffic"].update(KITTI_SENSOR)
@@ -102,17 +106,25 @@ def make(tmp: Path, config: str = "ncd-recon", cell: str = "ncd-recon.walk",
     return tmp / "BENCHMARK.json"
 
 
-def run(path: Path, seed: int = 5, seconds: float = 2.0, trace=False,
-        control=False, fault=None, tick: float | None = None):
-    """One CPU run of the tiny cell -> (result, checks).  With ``tick``
-    the harness's clock reads ``tick`` seconds more at every call, so
-    that a window holds the same frames on any machine (three calls a
-    frame: ``seconds / (2 * tick)`` frames)."""
+def run(path: Path, seed: int = 5, frames: int | None = None,
+        seconds: float = 600.0, trace=False, control=False, fault=None,
+        tick: float | None = None):
+    """One CPU run of the tiny cell -> (result, checks): a window of
+    ``frames`` frames (the cell's ``window_frames`` where None) under a
+    guard of ``seconds``.  With ``tick`` the harness's clock reads
+    ``tick`` seconds more at every call (two ticks a frame) and its
+    ``sleep(s)`` moves it on by ``s``, so that the guard closes a window
+    on the same frame on any machine."""
     import time
     import types
 
     import harness
     from manifest import Manifest
+    if frames is not None:
+        cell = path.parent / "benchmark" / "workloads" / "tiny.cell.json"
+        wl = json.loads(cell.read_text())
+        wl["window_frames"] = frames
+        cell.write_text(json.dumps(wl))
     m = Manifest(path, path.parent / "benchmark")
     clock = harness.time
     if tick is not None:
@@ -121,7 +133,10 @@ def run(path: Path, seed: int = 5, seconds: float = 2.0, trace=False,
         def tock():
             now[0] += tick
             return now[0]
-        harness.time = types.SimpleNamespace(perf_counter=tock)
+
+        def sleep(s):
+            now[0] += s
+        harness.time = types.SimpleNamespace(perf_counter=tock, sleep=sleep)
     try:
         return harness.run_cell(m, "tiny.cell", seed, seconds, trace, "cpu",
                                 time.perf_counter(), control=control,
